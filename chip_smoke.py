@@ -8,8 +8,12 @@
 3. Holds each kernel against its plain PyTorch version on the card, at small
    shapes (SE, periodic and ARD, square and rectangular, sizes that are not
    tile multiples, with and without the diagonal, 1 to 300 right-hand sides,
-   float32 and float64) and at the shapes of the main paths, where it also
-   times both with CUDA events.
+   B4-ARD over D = 1..16, B3 with and without its inverse over a batch of 64
+   tiles with non-PD and NaN ones, float32 and float64) and at the shapes of
+   the main paths, where it also times both with CUDA events, times the
+   PyTorch calls for the same function where there are any
+   (``torch.linalg.cholesky_ex`` for B3's factor, followed by
+   ``solve_triangular`` for its inverse) and computes each kernel's bound.
 4. Drives the main paths, each with the launch counters reset just before
    it and read just after: the exact-GP path
    (the ``fit`` workload of BASELINE config #1 through the CLI at N=500 and
@@ -54,6 +58,11 @@ CHOL_BACKWARD_TOL = {"float32": 1e-6, "float64": 1e-13}
 # the blocked factor's backward error, as a multiple of torch.linalg's on
 # the same float32 matrix
 BLOCKED_BACKWARD_RATIO = 4.0
+# B3's inverse: relative Frobenius distance from the plain inverse (two
+# inverses of a triangular factor differ by up to ~kappa(L) u) and
+# ||L^-1 L - I||_F / ||I||_F
+INV_TOL = {"float32": 3e-4, "float64": 1e-11}
+INV_RESIDUAL_TOL = {"float32": 1e-5, "float64": 1e-13}
 # the main path against the plain float64 computation.  float32: the fit
 # to the limits of PERF.md section 2; the gradient's h component cancels 4096 against
 # 4083 inside tr(K^-1 dK/dh), so a float32 gradient at kappa(K) ~ 1.6e5 is
@@ -95,24 +104,48 @@ N_TEST_MEAN, N_TEST_DIAG = 1000, 64
 # dense float64 solve at N=16384, stochastic estimates in standard errors
 ITER_RESIDUAL, ITER_RMSE, ITER_ALPHA_REL, ITER_SE = 1e-4, 0.05, 1e-3, 4.0
 
+# the least time the card could take for a kernel's work: the larger of its
+# operations over the float32 peak outside the tensor cores and its bytes
+# (each input read once, each output written once) over the HBM rate (NVIDIA
+# H100 SXM data sheet, at 700 W)
+F32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# operations (flops; an FMA is 2, an exp 1) per element (i, j) of each
+# closed form, the least the function needs, with every per-call, per-row
+# and per-column constant hoisted out (coordinates scaled by 1/w once per
+# call; h^2 and a plane's constant applied once per row or folded into the
+# exponent's accumulator): ARD over D dimensions is a subtract and a
+# multiply-add per dimension and one exp (3D + 1); SE is ARD at D = 1 (4);
+# its two Jacobian values E and E d^2 one product more (5); one Hessian
+# plane E times at most two products (6); a product with r columns adds 2r
+# per element, P Jacobian values 2Pr.  The Cholesky of a b x b tile is
+# b^3 / 3, its triangular inverse b^3 / 3 more.
+SE_K_OPS, SE_JAC_OPS, SE_HESS_PLANE_OPS = 4, 5, 6
+
+
+def ard_ops(dim: int) -> int:
+    return 3 * dim + 1
+
 KERNEL_ROWS = [
-    # (name, launch counter, source, replaces)
-    ("B1 pairwise K", "pairwise_k", "gaussian_processes_tpu_torch/csrc/pairwise.cu",
+    # (name, launch counter, timed row, source, replaces); B3's row times the
+    # variant with the inverse, the one the paths launch
+    ("B1 pairwise K", "pairwise_k", "pairwise_k", "gaussian_processes_tpu_torch/csrc/pairwise.cu",
      "gaussian_processes_tpu/ops/pairwise.py:88"),
-    ("B2a pairwise dK/dtheta", "pairwise_jac", "gaussian_processes_tpu_torch/csrc/pairwise.cu",
-     "gaussian_processes_tpu/ops/pairwise.py:270"),
-    ("B2b pairwise d2K/dtheta2", "pairwise_hess", "gaussian_processes_tpu_torch/csrc/pairwise.cu",
-     "gaussian_processes_tpu/ops/pairwise.py:277"),
-    ("B3 Cholesky tile", "chol_tile", "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
+    ("B2a pairwise dK/dtheta", "pairwise_jac", "pairwise_jac",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:270"),
+    ("B2b pairwise d2K/dtheta2", "pairwise_hess", "pairwise_hess",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:277"),
+    ("B3 Cholesky tile with its inverse", "chol_tile", "chol_tile_inv",
+     "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
      "gaussian_processes_tpu/ops/blocked_cholesky.py:83"),
-    ("B4 fused kernel matvec", "kernel_matvec", "gaussian_processes_tpu_torch/csrc/matvec.cu",
-     "gaussian_processes_tpu/ops/pairwise.py:363"),
-    ("B4-ARD fused ARD matvec", "kernel_matvec_ard",
-     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:398"),
-    ("B5 fused Jacobian product", "kernel_jacvec", "gaussian_processes_tpu_torch/csrc/matvec.cu",
-     "gaussian_processes_tpu/ops/pairwise.py:528"),
-    ("B6 ARD pairwise K", "pairwise_ard", "gaussian_processes_tpu_torch/csrc/matvec.cu",
-     "gaussian_processes_tpu/ops/pairwise.py:188"),
+    ("B4 fused kernel matvec", "kernel_matvec", "kernel_matvec",
+     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:363"),
+    ("B4-ARD fused ARD matvec", "kernel_matvec_ard", "kernel_matvec_ard",
+     "gaussian_processes_tpu_torch/csrc/ard_matvec.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:398"),
+    ("B5 fused Jacobian product", "kernel_jacvec", "kernel_jacvec",
+     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:528"),
+    ("B6 ARD pairwise K", "pairwise_ard", "pairwise_ard",
+     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:188"),
 ]
 # the launch counters each main path must move: B1 builds the pivot columns
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD fit
@@ -121,6 +154,22 @@ PATH_KERNELS = {
     "matrix-free": ("pairwise_k", "chol_tile", "kernel_matvec", "kernel_matvec_ard",
                     "kernel_jacvec", "pairwise_ard"),
 }
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """``bound_ms`` and ``bound_by`` for work of ``ops`` flops and ``nbytes``."""
+    t_ops = ops / F32_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def card_name_and_power_limit() -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=name,power.limit``."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 class Checks:
@@ -273,6 +322,54 @@ def check_kernels_small(check, dev):
         got, want = bc.chol_tile(bad.contiguous()), bc.cholesky_reference(bad)
         same = torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got).any())
         check(f"B3 non-PD tile NaN pattern {dname} (0 = same)", 0.0 if same else 1.0, 0.0)
+        check_tile_batch(check, dev, dtype, gen)
+
+
+def check_tile_batch(check, dev, dtype, gen):
+    """B3, with and without its inverse, over a batch of 64 kernel tiles (the
+    per-chain factors of the samplers) of which four are not positive
+    definite and four hold a NaN."""
+    import torch
+    from gaussian_processes_tpu_torch import GaussianKernel
+    from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    dname = str(dtype).split(".")[-1]
+    k = GaussianKernel(1.0, 1.0, dtype=torch.float64, device=dev)
+    xs = torch.sort(torch.rand(16, 512, generator=gen, dtype=torch.float64) * 6 - 3, dim=1)[0]
+    Ks = [pw.pairwise_matrix_reference(k, x.to(dev), x.to(dev), noise=0.1, jitter=1e-6) for x in xs]
+    batch = torch.stack([Ks[b // 4][(b % 4) * 128:(b % 4 + 1) * 128, (b % 4) * 128:(b % 4 + 1) * 128]
+                         for b in range(64)]).to(dtype)
+    not_pd, has_nan = (3, 17, 40, 63), (5, 22, 41, 58)
+    for b in not_pd:
+        batch[b, 60 + b % 7, 60 + b % 7] = -1.0
+    for b in has_nan:
+        batch[b, 90, 11] = batch[b, 11, 90] = float("nan")
+    batch = batch.contiguous()
+    good = [b for b in range(64) if b not in not_pd + has_nan]
+    bad = list(not_pd + has_nan)
+    L = bc.chol_tile(batch)
+    L2, Li = bc.chol_tile_inv(batch)
+    Lr, Lir = bc.chol_tile_inv_reference(batch)
+    tag = f"B3 batch of 64 {dname}"
+    check(f"{tag}: good tiles vs plain", rel_fro(L[good], Lr[good]), CHOL_TOL[dname])
+    check(f"{tag}: good tiles backward", backward(L[good], batch[good]), CHOL_BACKWARD_TOL[dname])
+    same = torch.equal(L[good], L2[good]) and torch.equal(torch.isnan(L), torch.isnan(L2))
+    check(f"{tag}: factor with and without the inverse bit-identical (0 = yes)",
+          0.0 if same else 1.0, 0.0)
+    check(f"{tag}: inverse vs plain", rel_fro(Li[good], Lir[good]), INV_TOL[dname])
+    eye = torch.eye(128, dtype=torch.float64, device=dev).expand(len(good), 128, 128)
+    check(f"{tag}: ||L^-1 L - I|| / ||I||",
+          rel_fro(Li[good].double() @ L[good].double(), eye), INV_RESIDUAL_TOL[dname])
+    lower = torch.tril(torch.ones(128, 128, dtype=torch.bool, device=dev))
+    nan_ok = all(bool(torch.isnan(t[b][lower]).all()) and bool((t[b][~lower] == 0).all())
+                 for t in (L, Li) for b in bad)
+    check(f"{tag}: non-PD and NaN tiles all-NaN lower, zero upper (0 = yes)",
+          0.0 if nan_ok else 1.0, 0.0)
+    check(f"{tag}: NaN pattern as plain (0 = yes)",
+          0.0 if torch.equal(torch.isnan(L), torch.isnan(Lr)) else 1.0, 0.0)
+    check(f"{tag}: upper triangles zero", float(torch.triu(L[good], 1).abs().max()
+                                                + torch.triu(Li[good], 1).abs().max()), 0.0)
 
 
 def check_kernels_at_slice(check, dev) -> dict:
@@ -291,11 +388,11 @@ def check_kernels_at_slice(check, dev) -> dict:
     x4 = torch.as_tensor(make_data(dataclasses.replace(data, n=GRAD_N), "float32")[0], device=dev)
     rows = {}
 
-    def record(key, got, want, kernel_fn, plain_fn, iters, planes=True):
+    def record(key, got, want, kernel_fn, plain_fn, iters, work, planes=True):
         err, v = plane_violation(got, want, "float32") if planes else (
             float((got - want).abs().max()), 0.0)
         rows[key] = {"max_abs_err": err, "ms": time_ms(kernel_fn, iters),
-                     "plain_ms": time_ms(plain_fn, iters)}
+                     "plain_ms": time_ms(plain_fn, iters), **bound(*work), "library_ms": None}
         print(f"  {key}: kernel {rows[key]['ms']:.4f} ms, plain {rows[key]['plain_ms']:.4f} ms, "
               f"max_abs_err {err:.3e}", flush=True)
         return v
@@ -305,28 +402,59 @@ def check_kernels_at_slice(check, dev) -> dict:
     noise = torch.tensor(0.1, dtype=f32, device=dev)
     kern = lambda: pw.pairwise_matrix(k, x16, x16, noise=noise, jitter=1e-6)  # noqa: E731
     plain = lambda: pw.pairwise_matrix_reference(k, x16, x16, noise=noise, jitter=1e-6)  # noqa: E731
-    check(f"B1 {K_N}x{K_N}+diag", record("pairwise_k", kern(), plain(), kern, plain, 10), 1.0)
+    n2 = K_N * K_N
+    check(f"B1 {K_N}x{K_N}+diag", record("pairwise_k", kern(), plain(), kern, plain, 10,
+                                         (SE_K_OPS * n2 + K_N, 4 * (2 * K_N + n2))), 1.0)
 
     kern = lambda: pw.pairwise_jacobian(k, x4, x4)  # noqa: E731
     plain = lambda: pw.pairwise_jacobian_reference(k, x4, x4)  # noqa: E731
-    check(f"B2a {GRAD_N}x{GRAD_N}", record("pairwise_jac", kern(), plain(), kern, plain, 10), 1.0)
+    g2 = GRAD_N * GRAD_N
+    check(f"B2a {GRAD_N}x{GRAD_N}", record("pairwise_jac", kern(), plain(), kern, plain, 10,
+                                           (SE_JAC_OPS * g2, 4 * (2 * GRAD_N + 2 * g2))), 1.0)
 
     kern = lambda: pw.pairwise_hessian(k, x4, x4, pair=(0, 1))  # noqa: E731
     plain = lambda: pw.pairwise_hessian_reference(k, x4, x4, pair=(0, 1))  # noqa: E731
-    check(f"B2b {GRAD_N}x{GRAD_N} pair", record("pairwise_hess", kern(), plain(), kern, plain, 10), 1.0)
+    check(f"B2b {GRAD_N}x{GRAD_N} pair",
+          record("pairwise_hess", kern(), plain(), kern, plain, 10,
+                 (SE_HESS_PLANE_OPS * g2, 4 * (2 * GRAD_N + g2))), 1.0)
     kern = lambda: pw.pairwise_hessian(k, x4, x4)  # noqa: E731
     plain = lambda: pw.pairwise_hessian_reference(k, x4, x4)  # noqa: E731
     check(f"B2b {GRAD_N}x{GRAD_N} all planes",
-          record("pairwise_hess_all_planes", kern(), plain(), kern, plain, 10), 1.0)
+          record("pairwise_hess_all_planes", kern(), plain(), kern, plain, 10,
+                 (4 * SE_HESS_PLANE_OPS * g2, 4 * (2 * GRAD_N + 4 * g2))), 1.0)
 
     K16 = pw.pairwise_matrix(k, x16, x16, noise=0.1, jitter=1e-6)
     tile = K16[:128, :128].contiguous()
     kern = lambda: bc.chol_tile(tile)  # noqa: E731
     plain = lambda: bc.cholesky_reference(tile)  # noqa: E731
     got, want = kern(), plain()
-    record("chol_tile", got, want, kern, plain, 50, planes=False)
+    tile_work = (128 ** 3 / 3, 4 * 2 * 128 * 128)
+    record("chol_tile", got, want, kern, plain, 50, tile_work, planes=False)
+    rows["chol_tile"]["library_ms"] = time_ms(lambda: torch.linalg.cholesky_ex(tile), 50)
     check("B3 config-1 tile", rel_fro(got, want), CHOL_TOL["float32"])
     check("B3 config-1 tile backward", backward(got, tile), CHOL_BACKWARD_TOL["float32"])
+    # with the inverse, as cholesky_blocked launches it (the kernel line's B3
+    # row), held against the two library calls it replaces
+    eye = torch.eye(128, dtype=f32, device=dev)
+    kern = lambda: bc.chol_tile_inv(tile)  # noqa: E731
+    plain = lambda: bc.chol_tile_inv_reference(tile)  # noqa: E731
+    (got, got_inv), (want, want_inv) = kern(), plain()
+    record("chol_tile_inv", torch.stack((got, got_inv)), torch.stack((want, want_inv)), kern,
+           plain, 50, (128 ** 3 / 3 + 128 ** 3 / 3, 4 * 3 * 128 * 128), planes=False)
+    rows["chol_tile_inv"]["library_ms"] = time_ms(lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(tile)[0], eye, upper=False), 50)
+    check("B3 config-1 tile with inverse: factor vs plain", rel_fro(got, want), CHOL_TOL["float32"])
+    check("B3 config-1 tile inverse vs plain", rel_fro(got_inv, want_inv), INV_TOL["float32"])
+    # 64 tiles at once (the per-chain factors of the samplers)
+    tiles = torch.stack([K16[i:i + 128, i:i + 128] for i in range(0, 64 * 128, 128)]).contiguous()
+    rows["chol_tile_batch64"] = {"ms": time_ms(lambda: bc.chol_tile(tiles), 20),
+                                 "library_ms": time_ms(lambda: torch.linalg.cholesky_ex(tiles), 20),
+                                 **bound(64 * tile_work[0], 64 * tile_work[1])}
+    for key, lib in (("chol_tile", "cholesky_ex"),
+                     ("chol_tile_inv", "cholesky_ex + solve_triangular"),
+                     ("chol_tile_batch64", "cholesky_ex")):
+        print(f"  {key}: kernel {rows[key]['ms']:.4f} ms, {lib} {rows[key]['library_ms']:.4f} ms, "
+              f"bound {rows[key]['bound_ms']:.2e} ms", flush=True)
 
     L = bc.cholesky_blocked(K16)
     b_blocked = backward(L, K16)
@@ -398,6 +526,36 @@ def check_products_small(check, dev):
         check(f"B6+diag 777x1234 D=3 {dname}", v, 1.0)
 
 
+def check_ard_products_small(check, dev):
+    """B4-ARD against its plain version over D = 1, 2, 3, 8, 16, n = 129,
+    777, 1000 and r = 1, 8, 9, 64, 300, float32 and float64, each product
+    repeated and required bit-identical; one check per (dtype, D) holds the
+    largest violation of its 15 shapes."""
+    import torch
+    from gaussian_processes_tpu_torch import ARDGaussianKernel
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("B4-ARD vs plain over D, n and r:", flush=True)
+    gen = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for D in (1, 2, 3, 8, 16):
+            k = ARDGaussianKernel(1.1, torch.linspace(0.6, 2.4, D, dtype=torch.float64),
+                                  dtype=dtype, device=dev)
+            worst, same = 0.0, True
+            for n in (129, 777, 1000):
+                x = (torch.rand(n, D, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+                for r in (1, 8, 9, 64, 300):
+                    v = torch.randn(n, r, generator=gen, dtype=torch.float64).to(dev, dtype)
+                    got = pw.kernel_matvec_fused(k, x, v, 0.1, 1e-6)
+                    want = pw.kernel_matvec_fused_reference(k, x, v, 0.1, 1e-6)
+                    bound_v = pw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
+                    worst = max(worst, product_violation(got, want, bound_v, dname)[1])
+                    same &= torch.equal(got, pw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
+            check(f"B4-ARD D={D} {dname}, 15 shapes", worst, 1.0)
+            check(f"B4-ARD D={D} {dname} repeats bit-identical (0 = yes)", 0.0 if same else 1.0, 0.0)
+
+
 def check_products_at_slice(check, dev, rows):
     """Phase 3b, matrix-free kernels at the main path's shapes (float32),
     timed against their plain versions and against the strip matvec (B1
@@ -408,15 +566,16 @@ def check_products_at_slice(check, dev, rows):
 
     print("matrix-free kernels vs plain at the main path's shapes (float32):", flush=True)
     gen = torch.Generator().manual_seed(2)
+    n2 = ITER_N * ITER_N
     x, _, k = sine_problem(ITER_N, dev)
     noise = torch.tensor(ITER_NOISE, dtype=torch.float32, device=dev)
 
-    def record(key, label, kern, plain, bound_fn, iters, plain_iters):
+    def record(key, label, kern, plain, bound_fn, iters, plain_iters, work):
         got, want = kern(), plain()
         err, viol = product_violation(got, want, bound_fn(), "float32")
         del got, want
         rows[key] = {"max_abs_err": err, "ms": time_ms(kern, iters),
-                     "plain_ms": time_ms(plain, plain_iters)}
+                     "plain_ms": time_ms(plain, plain_iters), **bound(*work), "library_ms": None}
         print(f"  {label}: kernel {rows[key]['ms']:.4f} ms, plain {rows[key]['plain_ms']:.4f} ms, "
               f"max_abs_err {err:.3e}", flush=True)
         check(label, viol, 1.0)
@@ -428,7 +587,7 @@ def check_products_at_slice(check, dev, rows):
                lambda: pw.kernel_matvec_fused(k, x, v, noise, ITER_JITTER),
                lambda: pw.kernel_matvec_fused_reference(k, x, v, noise, ITER_JITTER),
                lambda: pw.kernel_matvec_fused_reference(k, x, v.abs(), noise, ITER_JITTER),
-               10, 3)
+               10, 3, ((SE_K_OPS + 2 * r) * n2, 4 * (ITER_N + 2 * ITER_N * r)))
         strip = lambda: krylov.kernel_matvec(k, x, v, noise, ITER_JITTER, block_size=2048,  # noqa: E731
                                              impl="strip")
         rows[f"strip_matvec_r{r}"] = {"ms": time_ms(strip, 3)}
@@ -439,20 +598,28 @@ def check_products_at_slice(check, dev, rows):
     record("kernel_jacvec", f"B5 SE N={ITER_N} r=9",
            lambda: pw.kernel_jacvec_fused(k, x, u),
            lambda: pw.kernel_jacvec_fused_reference(k, x, u),
-           lambda: pw.kernel_jacvec_fused_reference(k, x, u.abs()), 5, 2)
+           lambda: pw.kernel_jacvec_fused_reference(k, x, u.abs()), 5, 2,
+           ((SE_JAC_OPS + 2 * 2 * 9) * n2, 4 * (ITER_N + 9 * ITER_N + 2 * 9 * ITER_N)))
     xa, _, ka = ard_problem(ITER_N, dev)
-    v = torch.randn(ITER_N, 8, generator=gen).to(dev)
-    record("kernel_matvec_ard", f"B4-ARD N={ITER_N} D={ARD_DIM} r=8",
-           lambda: pw.kernel_matvec_fused(ka, xa, v, noise, ITER_JITTER),
-           lambda: pw.kernel_matvec_fused_reference(ka, xa, v, noise, ITER_JITTER),
-           lambda: pw.kernel_matvec_fused_reference(ka, xa, v.abs(), noise, ITER_JITTER), 5, 2)
+    # r = 8 (the SLQ probes) is the row of the kernel JSON line; r = 1 (the
+    # CG solve for alpha) and r = 64 (predict_diag_iterative) beside it
+    for r, key in ((8, "kernel_matvec_ard"), (1, "kernel_matvec_ard_r1"),
+                   (64, "kernel_matvec_ard_r64")):
+        v = torch.randn(ITER_N, r, generator=gen).to(dev)
+        record(key, f"B4-ARD N={ITER_N} D={ARD_DIM} r={r}",
+               lambda: pw.kernel_matvec_fused(ka, xa, v, noise, ITER_JITTER),
+               lambda: pw.kernel_matvec_fused_reference(ka, xa, v, noise, ITER_JITTER),
+               lambda: pw.kernel_matvec_fused_reference(ka, xa, v.abs(), noise, ITER_JITTER),
+               5, 2, ((ard_ops(ARD_DIM) + 2 * r) * n2, 4 * (ITER_N * ARD_DIM + 2 * ITER_N * r)))
     xa16 = xa[:K_N].contiguous()
     kern = lambda: pw.pairwise_matrix_ard(ka, xa16, xa16, noise=noise, jitter=ITER_JITTER)  # noqa: E731
     plain = lambda: pw.pairwise_matrix_ard_reference(ka, xa16, xa16, noise=noise,  # noqa: E731
                                                      jitter=ITER_JITTER)
     err, viol = plane_violation(kern(), plain(), "float32")
     rows["pairwise_ard"] = {"max_abs_err": err, "ms": time_ms(kern, 10),
-                            "plain_ms": time_ms(plain, 3)}
+                            "plain_ms": time_ms(plain, 3), "library_ms": None,
+                            **bound(ard_ops(ARD_DIM) * K_N * K_N,
+                                    4 * (2 * K_N * ARD_DIM + K_N * K_N))}
     print(f"  B6 {K_N}^2 D={ARD_DIM}+diag: kernel {rows['pairwise_ard']['ms']:.4f} ms, plain "
           f"{rows['pairwise_ard']['plain_ms']:.4f} ms, max_abs_err {err:.3e}", flush=True)
     check(f"B6 {K_N}x{K_N} D={ARD_DIM}+diag", viol, 1.0)
@@ -484,10 +651,11 @@ def run_iterative_path(dev) -> dict:
     out["grad_wall_s"] = time.perf_counter() - t0
 
     xa, ya, ka = ard_problem(ITER_N, dev)
-    t0 = time.perf_counter()
-    out["ard"] = (xa, ya, ka, gpx.fit_iterative(ka, xa, ya, ITER_NOISE, seed(12), **ITER_OPTS))
-    torch.cuda.synchronize()
-    out["ard_fit_wall_s"] = time.perf_counter() - t0
+    for wall in ("ard_fit_wall_s", "ard_fit_warm_wall_s"):  # first call, then again
+        t0 = time.perf_counter()
+        out["ard"] = (xa, ya, ka, gpx.fit_iterative(ka, xa, ya, ITER_NOISE, seed(12), **ITER_OPTS))
+        torch.cuda.synchronize()
+        out[wall] = time.perf_counter() - t0
     xa16, ya16 = xa[:K_N].contiguous(), ya[:K_N].contiguous()
     post_e = gpx.fit(ka, xa16, ya16, ITER_NOISE, ITER_JITTER)
     out["ard_exact"] = (xa16, ya16, float(post_e.log_marginal),
@@ -510,8 +678,8 @@ def check_iterative_path(check, out, dev) -> dict:
     from gaussian_processes_tpu_torch.ops import pairwise as pw
 
     print("matrix-free path (float32) vs plain float64 on the card:", flush=True)
-    summary = {"fit_wall_s": out["fit_wall_s"], "grad_wall_s": out["grad_wall_s"],
-               "ard_fit_wall_s": out["ard_fit_wall_s"]}
+    summary = {key: out[key] for key in ("fit_wall_s", "grad_wall_s", "ard_fit_wall_s",
+                                          "ard_fit_warm_wall_s")}
 
     def true_residual(k, x, y, alpha):
         k64 = k.with_params(k.params.double())
@@ -544,7 +712,8 @@ def check_iterative_path(check, out, dev) -> dict:
 
     xa, ya, ka, post_a = out["ard"]
     res = true_residual(ka, xa, ya, post_a.alpha)
-    print(f"  ARD D={ARD_DIM} N={ITER_N}: fit_iterative {out['ard_fit_wall_s']:.3f} s, recurrence "
+    print(f"  ARD D={ARD_DIM} N={ITER_N}: fit_iterative {out['ard_fit_wall_s']:.3f} s "
+          f"(again: {out['ard_fit_warm_wall_s']:.3f} s), recurrence "
           f"residual {float(post_a.solve_residual):.3e}", flush=True)
     check(f"ARD N={ITER_N} true relative residual (f64)", res, ITER_RESIDUAL)
     check(f"ARD N={ITER_N} outputs finite (0 = yes)", finite(post_a.alpha, post_a.log_marginal),
@@ -734,10 +903,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_name_and_power_limit()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -755,18 +921,20 @@ def main() -> int:
     check = Checks()
     check_kernels_small(check, dev)
     check_products_small(check, dev)
+    check_ard_products_small(check, dev)
     slice_rows = check_kernels_at_slice(check, dev)
     check_products_at_slice(check, dev, slice_rows)
 
     fit_cfg = CONFIGS["config1_fit_se500"].fit
     # each path runs with the counters at 0 and is read just after
-    launches = {}
+    launches, launches_by_path = {}, {}
     runs = {}
     for path, run in (("exact", lambda: run_main_path(dev)),
                       ("matrix-free", lambda: run_iterative_path(dev))):
         _build.launch_counts.clear()
         runs[path] = run()
         counts = dict(_build.launch_counts)
+        launches_by_path[path] = counts
         print(f"launches on the {path} path: {counts}", flush=True)
         for key in PATH_KERNELS[path]:
             check(f"{key} launched on the {path} path (0 = yes)",
@@ -779,9 +947,10 @@ def main() -> int:
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches.get(key, 0), "max_abs_err": slice_rows[key]["max_abs_err"],
-         "ms": slice_rows[key]["ms"], "plain_ms": slice_rows[key]["plain_ms"]}
-        for name, key, source, replaces in KERNEL_ROWS
+         "launches": launches.get(key, 0),
+         **{field: slice_rows[row][field] for field in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for name, key, row, source, replaces in KERNEL_ROWS
     ]
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed: {check.failed}",
@@ -794,6 +963,9 @@ def main() -> int:
         "cholesky_blocked": slice_rows["cholesky_blocked"],
         "pairwise_hess_all_planes": slice_rows["pairwise_hess_all_planes"],
         "kernel_matvec_r8": slice_rows["kernel_matvec_r8"],
+        **{key: slice_rows[key] for key in ("chol_tile", "chol_tile_batch64",
+                                            "kernel_matvec_ard_r1", "kernel_matvec_ard_r64")},
+        "launches_by_path": launches_by_path,
         "strip_matvec_ms": {r: slice_rows[f"strip_matvec_r{r}"]["ms"] for r in (1, 8)},
         "iterative": iter_summary,
     }))

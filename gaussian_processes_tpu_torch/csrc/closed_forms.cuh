@@ -5,8 +5,9 @@
 // hess_fn of its Python class (models/gaussian.py, models/periodic.py), so
 // the kernels and their plain PyTorch twins evaluate the same arithmetic.
 // Matern 3/2 and 5/2, RQ and Sum/Product trees extend the Family switch when
-// their modules are ported.  kARD names the D-dimensional ARD-SE kernel
-// (models/ard.py), which only B4 and B6 take.
+// their modules are ported.  The D-dimensional ARD-SE kernel
+// (models/ard.py) is not a case of the switch: B6 (matvec.cu) evaluates it
+// through ard_k below, B4-ARD (ard_matvec.cuh) in its own pre-scaled form.
 //
 // Compiled without --use_fast_math: sin and exp are the accurate libm forms,
 // never __sinf / __expf.
@@ -16,7 +17,7 @@
 
 namespace gp {
 
-enum Family : int { kSE = 0, kPeriodic = 1, kARD = 2 };
+enum Family : int { kSE = 0, kPeriodic = 1 };
 
 __device__ __forceinline__ float dexp(float v) { return expf(v); }
 __device__ __forceinline__ double dexp(double v) { return exp(v); }

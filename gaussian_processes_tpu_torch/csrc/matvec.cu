@@ -1,16 +1,16 @@
-// B4, B4-ARD, B5: matrix-free kernel products; B6: the ARD covariance.
+// B4, B5: matrix-free kernel products; B6: the ARD covariance.  (B4-ARD,
+// the ARD product, has a kernel of its own: ard_matvec.cuh.)
 //
 // Replaces the Pallas tile bodies of gaussian_processes_tpu/ops/pairwise.py:
 //   B4     _matvec_tile_body      out = K(x, x) V, SE / periodic, 1-D x
-//   B4-ARD _ard_matvec_tile_body  the same for ARD-SE over (n, D) inputs
 //   B5     _jacvec_tile_body      out[p] = dK/dtheta_p (x, x) U for every p
 //   B6     _ard_tile_body         K[i, j] for ARD-SE, optional s^2 + jitter
 //                                 on the global diagonal
 //
 // B4 / B5.  K (and dK/dtheta) is never stored: device memory sees x, V and
 // the (n, r) output only, so the bound on the H100 is arithmetic, about n^2
-// closed-form evaluations (one exp, plus a sin for periodic, D
-// multiply-adds for ARD) and n^2 r multiply-adds.  Each element is evaluated
+// closed-form evaluations (one exp, plus a sin for periodic) and n^2 r
+// multiply-adds.  Each element is evaluated
 // once and applied to every column of V that the block holds, with FP32 /
 // FP64 FMAs on the CUDA cores: no TF32, the counterpart of the Pallas
 // body's Precision.HIGHEST.
@@ -21,22 +21,20 @@
 // staging x_j and V[j, chunk] in shared memory; every thread reads the same
 // x_j and V[j, c], a broadcast without bank conflicts.  A tile's kTile
 // products are summed in T, and the tile sums are added across the row in
-// double: summed in float32 alone, the ~2e4 terms of a row of the N = 65536
-// ARD workload lose ~3e-4 of ||y|| (a float32 sequential sum measured on the
-// CPU at N = 8192 lost 1.4e-4), which the f64 residual check of the solve
-// would see; the two-level sum costs one add per tile.  To give 132 SMs
-// enough blocks at r = 1 the column range is split over grid axis z; each
-// split writes its partial products to a workspace and a second kernel adds
-// them in split order, so a product gives the same bits on every call (no
-// float atomics: CG and its early exit want a deterministic operator).
+// double (ard_matvec.cuh says why); the two-level sum costs one add per tile.
+// To give 132 SMs enough blocks at r = 1 the column range is split over grid
+// axis z; each split writes its partial products to a workspace and a second
+// kernel adds them in split order (splits.cuh), so a product gives the same
+// bits on every call (no float atomics: CG and its early exit want a
+// deterministic operator).
 // Ragged edges are bounds-checked; flat indices are 64-bit (65536^2 > 2^31).
 //
 // B6 is B1 (pairwise.cu) over D dimensions: a block of kArdCols threads
 // spans neighbouring columns, so stores coalesce, and each thread keeps its
 // column's D coordinates and 1/w_d in registers.
 //
-// ARD forms multiply by 1/w_d where the Pallas body divides by w_d: one
-// rounding of difference per term, inside the stated tolerances.
+// B6 multiplies by 1/w_d where the Pallas body divides by w_d: one rounding
+// of difference per term, inside the stated tolerances.
 
 #include <algorithm>
 #include <cstddef>
@@ -45,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "closed_forms.cuh"
+#include "splits.cuh"
 
 namespace {
 
@@ -88,38 +87,6 @@ struct JacEval {
   __device__ void set_row(const T* x, int row) { xi = x[row]; }
   __device__ void eval(const T* xj, T* vals) const {
     Form::jac(xi - xj[0], th, vals);
-  }
-};
-
-// B4-ARD: h^2 exp(-1/2 sum_d ((x_id - x_jd) / w_d)^2)
-template <typename T>
-struct ArdEval {
-  static constexpr int kVals = 1;
-  static constexpr int kDimCap = kMaxArdDim;
-  T h;
-  T iw[kMaxArdDim];
-  T xi[kMaxArdDim];
-  int dim;
-  __device__ ArdEval(const T* params, int d_in) : h(params[0]), dim(d_in) {
-#pragma unroll
-    for (int d = 0; d < kMaxArdDim; ++d) iw[d] = d < dim ? T(1) / params[1 + d] : T(0);
-  }
-  __device__ void set_row(const T* x, int row) {
-#pragma unroll
-    for (int d = 0; d < kMaxArdDim; ++d) {
-      xi[d] = d < dim ? x[static_cast<size_t>(row) * dim + d] : T(0);
-    }
-  }
-  __device__ void eval(const T* xj, T* vals) const {
-    T sq = T(0);
-#pragma unroll
-    for (int d = 0; d < kMaxArdDim; ++d) {
-      if (d < dim) {
-        const T t = (xi[d] - xj[d]) * iw[d];
-        sq = gp::dfma(t, t, sq);
-      }
-    }
-    vals[0] = gp::ard_k(sq, h);
   }
 };
 
@@ -190,19 +157,6 @@ product_kernel(const T* __restrict__ x, const T* __restrict__ v,
   }
 }
 
-// out[i] = sum_z work[z][i], added in split order
-template <typename T>
-__global__ void sum_splits_kernel(const T* __restrict__ work, T* __restrict__ out,
-                                  size_t count, int splits) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < count; i += stride) {
-    double s = work[i];
-    for (int z = 1; z < splits; ++z) s += work[static_cast<size_t>(z) * count + i];
-    out[i] = static_cast<T>(s);
-  }
-}
-
 template <typename T, typename Eval, int RC>
 int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
                       int n, int dim, int r, int splits, cudaStream_t stream) {
@@ -217,12 +171,8 @@ int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
       x, v, params, used == 1 ? out : work, n, dim, r, tiles_per_split * kTile);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || used == 1) return static_cast<int>(err);
-  const size_t count = static_cast<size_t>(Eval::kVals) * n * r;
-  const int threads = 256;
-  const size_t blocks = std::min<size_t>((count + threads - 1) / threads, 4096);
-  sum_splits_kernel<T><<<static_cast<int>(blocks), threads, 0, stream>>>(
-      work, out, count, used);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gp::launch_sum_splits<T>(
+      work, out, static_cast<size_t>(Eval::kVals) * n * r, used, stream));
 }
 
 // RC, the columns of V a block holds: the smallest of 1, 4, 8, 16 that
@@ -263,10 +213,6 @@ int launch_matvec(const T* x, const T* v, const T* params, T* out, T* work,
       if (dim != 1) break;
       return launch_product<T, KEval<T, gp::PeriodicForm<T>>>(x, v, params, out, work, n,
                                                               dim, r, splits, stream);
-    case gp::kARD:
-      if (dim < 1 || dim > kMaxArdDim) break;
-      return launch_product<T, ArdEval<T>>(x, v, params, out, work, n, dim, r, splits,
-                                           stream);
     default:
       break;
   }

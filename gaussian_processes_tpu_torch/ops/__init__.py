@@ -7,6 +7,7 @@ and the Krylov solvers of the matrix-free path (``ops.krylov``).
 from gaussian_processes_tpu_torch.ops._build import launch_counts
 from gaussian_processes_tpu_torch.ops.blocked_cholesky import (
     chol_tile,
+    chol_tile_inv,
     cholesky_blocked,
     cholesky_reference,
     choose_cholesky,
@@ -30,6 +31,7 @@ from gaussian_processes_tpu_torch.ops.pairwise import (
 __all__ = [
     "launch_counts",
     "chol_tile",
+    "chol_tile_inv",
     "cholesky_blocked",
     "cholesky_reference",
     "choose_cholesky",

@@ -49,9 +49,11 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P,
     ),
     "gp_chol_tile": (_I, _P, _P, _I, _I, _P),
+    "gp_chol_tile_inv": (_I, _P, _P, _P, _I, _I, _P),
     "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gp_kernel_jacvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gp_pairwise_ard": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gp_ard_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -6,12 +6,13 @@ products and only the O(N * 128^2) diagonal tiles run a sequential
 factorization.  Per panel k (row offset r = 128 k):
 
     strip = A[r:, r:r+128] - L[r:, :r] @ L[r:r+128, :r]^T   (GEMM)
-    L_kk  = chol(strip[:128])                               (B3 tile)
-    L[r+128:, k-strip] = strip[128:] @ L_kk^-T              (trtri + GEMM)
+    L_kk, L_kk^-1 = chol(strip[:128])                       (B3 tile)
+    L[r+128:, k-strip] = strip[128:] @ L_kk^-T              (GEMM)
 
-The factor lives in one buffer and each column strip is written once.  The
-GEMMs and the small triangular inverse stay with PyTorch (cuBLAS), as the JAX
-package leaves them to XLA; float32 products run in full float32
+The factor lives in one buffer and each column strip is written once.  B3
+returns the tile's inverse beside its factor (``chol_tile_inv``), so a panel
+takes no separate triangular inverse; the GEMMs stay with PyTorch (cuBLAS),
+as the JAX package leaves them to XLA; float32 products run in full float32
 (utils/device.py).  Inputs whose size is not a multiple of 128 are padded
 with an identity corner, chol(diag(A, I)) = diag(chol(A), I), and sliced
 back.
@@ -47,18 +48,26 @@ def cholesky_reference(A: torch.Tensor) -> torch.Tensor:
     (strict upper triangle zero), as ``jnp.linalg.cholesky`` does.
     """
     L, info = torch.linalg.cholesky_ex(A)
-    failed = (info != 0)[..., None, None]
+    # a NaN input fails too, whether or not the library's info flags it
+    failed = ((info != 0) | torch.isnan(L).any(-1).any(-1))[..., None, None]
     return torch.where(failed, torch.full_like(L, float("nan")).tril(), L)
 
 
-def chol_tile(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of a (128, 128) tile or a (batch, 128, 128)
-    stack of tiles.  The CUDA path is kernel B3, one thread block per tile."""
+def chol_tile_inv_reference(A: torch.Tensor):
+    """Plain twin of ``chol_tile_inv``: the factor and its triangular inverse
+    (a failed tile's inverse is NaN on and below the diagonal, as its factor)."""
+    L = cholesky_reference(A)
+    eye = torch.eye(TILE, dtype=A.dtype, device=A.device)
+    return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False).tril()
+
+
+def _check_tiles(A: torch.Tensor) -> None:
     if A.shape[-2:] != (TILE, TILE) or A.ndim not in (2, 3):
         raise ValueError(f"chol_tile takes (..., {TILE}, {TILE}) with at most "
                          f"one batch dimension, got {tuple(A.shape)}")
-    if A.device.type == "cpu":
-        return cholesky_reference(A)
+
+
+def _launch_tile(A: torch.Tensor, with_inv: bool):
     if A.device.type != "cuda":
         raise RuntimeError(f"no Cholesky tile kernel for device {A.device}")
     if A.dtype not in (torch.float32, torch.float64):
@@ -68,15 +77,43 @@ def chol_tile(A: torch.Tensor) -> torch.Tensor:
     if A.requires_grad:
         raise RuntimeError("chol_tile: the CUDA kernel has no autograd rule; "
                            "the input must not require grad")
+    if A.data_ptr() % 16:
+        # the kernel reads the tile 16 bytes at a time; a view at another
+        # offset is copied to a fresh (aligned) allocation
+        A = A.clone()
     batch = A.shape[0] if A.ndim == 3 else 1
     L = torch.empty_like(A)
-    status = _build.entry("gp_chol_tile", A.dtype)(
-        A.device.index, A.data_ptr(), L.data_ptr(), batch, TILE,
-        _build.stream_of(A),
-    )
+    if with_inv:
+        Linv = torch.empty_like(A)
+        status = _build.entry("gp_chol_tile_inv", A.dtype)(
+            A.device.index, A.data_ptr(), L.data_ptr(), Linv.data_ptr(), batch, TILE,
+            _build.stream_of(A),
+        )
+    else:
+        status = _build.entry("gp_chol_tile", A.dtype)(
+            A.device.index, A.data_ptr(), L.data_ptr(), batch, TILE, _build.stream_of(A),
+        )
     _build.check(status, "gp_chol_tile")
     _build.launch_counts["chol_tile"] += 1
-    return L
+    return (L, Linv) if with_inv else L
+
+
+def chol_tile(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a (128, 128) tile or a (batch, 128, 128)
+    stack of tiles.  The CUDA path is kernel B3, one thread block per tile."""
+    _check_tiles(A)
+    if A.device.type == "cpu":
+        return cholesky_reference(A)
+    return _launch_tile(A, with_inv=False)
+
+
+def chol_tile_inv(A: torch.Tensor):
+    """``(L, L^-1)`` of a (128, 128) tile or a (batch, 128, 128) stack: B3
+    with the inverse carried along in the same launch."""
+    _check_tiles(A)
+    if A.device.type == "cpu":
+        return chol_tile_inv_reference(A)
+    return _launch_tile(A, with_inv=True)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -97,7 +134,6 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
         padded[n:, n:].diagonal().fill_(1.0)
         A = padded
     out = torch.zeros_like(A)
-    eye = torch.eye(TILE, dtype=A.dtype, device=A.device)
     nb = n_pad // TILE
     for k in range(nb):
         r = k * TILE
@@ -106,10 +142,9 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
             # strip - L[r:, :r] @ L[r:r+TILE, :r]^T in one GEMM
             strip = torch.addmm(strip, out[r:, :r], out[r : r + TILE, :r].T,
                                 alpha=-1.0)
-        Lkk = chol_tile(strip[:TILE].contiguous())
+        Lkk, inv_Lkk = chol_tile_inv(strip[:TILE].contiguous())
         out[r : r + TILE, r : r + TILE] = Lkk
         if k + 1 < nb:
-            inv_Lkk = torch.linalg.solve_triangular(Lkk, eye, upper=False)
             out[r + TILE :, r : r + TILE] = strip[TILE:] @ inv_Lkk.T
     return out if n_pad == n else out[:n, :n].contiguous()
 

@@ -15,7 +15,10 @@ it; for tensors on a CUDA card it launches the hand-written kernel of
 * ``pairwise_matrix_ard`` (B6) replaces ``_ard_tile_body``: ARD-SE K.
 * ``kernel_matvec_fused`` (B4, B4-ARD) replaces ``_matvec_tile_body`` and
   ``_ard_matvec_tile_body``: (K(x, x) + (s^2 + jitter) I) V with K never
-  stored; the noise term is added outside the kernel.
+  stored; the noise term is added outside the kernel.  B4-ARD
+  (``csrc/ard_matvec.cuh``) takes coordinates pre-scaled by
+  ``ard_prescale``; ``ard_matvec_prescaled_reference`` is its arithmetic in
+  plain PyTorch.
 * ``kernel_jacvec_fused`` (B5) replaces ``_jacvec_tile_body``: the (P, n, r)
   stack of dK/dtheta_p U with dK/dtheta never stored.
 
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -231,8 +235,7 @@ def pairwise_hessian_reference(kernel, x1, x2, *, pair=None) -> torch.Tensor:
 # B6: ARD K over (n, D) inputs
 # ---------------------------------------------------------------------------
 
-_MAX_ARD_DIM = 16  # the largest D the ARD kernels take (csrc/matvec.cu)
-_ARD_FAMILY = 2  # gp::kARD in csrc/closed_forms.cuh
+_MAX_ARD_DIM = 16  # the largest D the ARD kernels take (csrc/matvec.cu, ard_matvec.cuh)
 
 
 def _is_ard(kernel) -> bool:
@@ -361,10 +364,8 @@ def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
     params = _params_like(kernel, x)
     _check_cuda(name, x, v, params)
     n, r = v.shape
-    D = x.shape[1] if x.ndim == 2 else 1
-    if max(n, r) > _INT32_MAX or D > _MAX_ARD_DIM:
-        raise ValueError(f"{name}: n, r must fit in int32 and D <= {_MAX_ARD_DIM}, "
-                         f"got {n}, {r}, {D}")
+    if max(n, r) > _INT32_MAX:
+        raise ValueError(f"{name}: n, r must fit in int32, got {n}, {r}")
     vals = kernel.n_params if jac else 1
     out = torch.empty((vals, n, r) if jac else (n, r), dtype=x.dtype, device=x.device)
     if n == 0 or r == 0:
@@ -372,18 +373,84 @@ def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
     splits = _product_splits(n, r, x.device, vals)
     work = (torch.empty(splits * vals * n * r, dtype=x.dtype, device=x.device)
             if splits > 1 else None)
-    family = _ARD_FAMILY if _is_ard(kernel) else _family(kernel)
     common = (x.device.index, x.data_ptr(), v.data_ptr(), params.data_ptr(),
               out.data_ptr(), None if work is None else work.data_ptr())
     if jac:
-        status = _build.entry(name, x.dtype)(*common, n, r, family, splits,
+        status = _build.entry(name, x.dtype)(*common, n, r, _family(kernel), splits,
                                              _build.stream_of(x))
-    else:
-        status = _build.entry(name, x.dtype)(*common, n, D, r, family, splits,
+    else:  # the entry point keeps B4's input-dimension argument (always 1 here)
+        status = _build.entry(name, x.dtype)(*common, n, 1, r, _family(kernel), splits,
                                              _build.stream_of(x))
     _build.check(status, name)
-    _build.launch_counts["kernel_jacvec" if jac else "kernel_matvec_ard"
-                         if family == _ARD_FAMILY else "kernel_matvec"] += 1
+    _build.launch_counts["kernel_jacvec" if jac else "kernel_matvec"] += 1
+    return out
+
+
+# B4-ARD takes coordinates pre-scaled by c / w_d, so that a dimension costs a
+# subtract and an FMA and k = h^2 exp2(-sq) (float32) or h^2 exp(-sq)
+# (float64): c^2 = log2(e) / 2 folds the -1/2 and the base change into the
+# coordinates (csrc/ard_matvec.cuh).
+_ARD_SCALE = {torch.float32: math.sqrt(0.5 * math.log2(math.e)),
+              torch.float64: math.sqrt(0.5)}
+#: blocks per SM that the column splits of a B4-ARD launch aim for
+_ARD_BLOCKS_PER_SM = 16
+
+
+def ard_prescale(kernel, x: torch.Tensor) -> torch.Tensor:
+    """(n, D) coordinates x_d * c / w_d in x's dtype, c = ``_ARD_SCALE``."""
+    w = kernel.w.to(device=x.device, dtype=torch.float64)
+    scale = (_ARD_SCALE[x.dtype] / w).to(x.dtype)
+    return (x * scale).contiguous()
+
+
+def ard_matvec_prescaled_reference(h, xs, v, block_size=1024) -> torch.Tensor:
+    """K V with B4-ARD's arithmetic on pre-scaled coordinates ``xs``
+    (``ard_prescale``): h^2 (exp2(-sq) V) in float32, h^2 (exp(-sq) V) in
+    float64, sq = sum_d (xs_i - xs_j)^2 taken one dimension at a time."""
+    v2, squeeze = _rhs(xs, v)
+    h2 = torch.square(torch.as_tensor(h, dtype=xs.dtype, device=xs.device))
+    neg_exp = torch.exp2 if xs.dtype == torch.float32 else torch.exp
+    out = v2.new_zeros(v2.shape)
+    for j in range(0, xs.shape[0], block_size):
+        sq = xs.new_zeros((xs.shape[0], xs[j:j + block_size].shape[0]))
+        for d in range(xs.shape[1]):
+            sq = sq + torch.square(xs[:, d, None] - xs[None, j:j + block_size, d])
+        out += neg_exp(-sq) @ v2[j:j + block_size]
+    out = h2 * out
+    return out[:, 0] if squeeze else out
+
+
+def _ard_splits(n: int, r: int, device) -> int:
+    """Column splits of a B4-ARD launch: about ``_ARD_BLOCKS_PER_SM`` blocks
+    per SM (a block covers 1024 rows and 1 right-hand side, 512 rows and 8,
+    or 256 rows and a chunk of 16), with at least 4 tiles of 128 columns per
+    split."""
+    chunk, rows = (1, 1024) if r == 1 else (8, 512) if r <= 8 else (16, 256)
+    blocks = -(-n // rows) * -(-r // chunk)
+    want = -(-_ARD_BLOCKS_PER_SM * _sm_count(device.index) // blocks)
+    return max(1, min(want, -(-n // 512)))
+
+
+def _launch_ard_product(kernel, x, v) -> torch.Tensor:
+    v = v.contiguous()
+    h = _params_like(kernel, x)[:1]
+    _check_cuda("gp_ard_matvec", x, v, h)
+    xs = ard_prescale(kernel, x)
+    (n, D), r = xs.shape, v.shape[1]
+    if max(n, r) > _INT32_MAX or D > _MAX_ARD_DIM:
+        raise ValueError(f"gp_ard_matvec: n, r must fit in int32 and D <= {_MAX_ARD_DIM}, "
+                         f"got {n}, {r}, {D}")
+    out = torch.empty((n, r), dtype=x.dtype, device=x.device)
+    if n == 0 or r == 0:
+        return out.zero_()
+    splits = _ard_splits(n, r, x.device)
+    work = torch.empty(splits * n * r, dtype=x.dtype, device=x.device) if splits > 1 else None
+    status = _build.entry("gp_ard_matvec", x.dtype)(
+        x.device.index, xs.data_ptr(), v.data_ptr(), h.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), n, D, r, splits, _build.stream_of(x),
+    )
+    _build.check(status, "gp_ard_matvec")
+    _build.launch_counts["kernel_matvec_ard"] += 1
     return out
 
 
@@ -401,7 +468,10 @@ def kernel_matvec_fused(kernel, x, v, noise, jitter: float = 0.0) -> torch.Tenso
     if x.device.type != "cuda":
         raise _unsupported(x)
     v2, squeeze = _rhs(x, v)
-    out = _launch_product(kernel, x.contiguous(), v2, jac=False)
+    if x.ndim == 2:
+        out = _launch_ard_product(kernel, x.contiguous(), v2)
+    else:
+        out = _launch_product(kernel, x.contiguous(), v2, jac=False)
     out = out + _diag_term(noise, jitter, x) * v2
     return out[:, 0] if squeeze else out
 

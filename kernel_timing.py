@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Time kernels B3 and B4-ARD, the paths over them, and the other kernels on
+one CUDA card, so that two trees of gaussian_processes_tpu_torch can be
+compared in one run.
+
+    python3 kernel_timing.py [--root DIR] [--profile DIR]
+
+``--root`` imports ``gaussian_processes_tpu_torch`` from DIR (default: this
+checkout).  To compare a parent commit with this one, unpack the parent into
+a directory that .gitignore lists (``git archive``) and run parent, this,
+this, parent in one call on one card.  The workloads, their data and the
+timing are ``chip_smoke.py``'s own, imported from the file beside this one:
+device times in ms by CUDA events around back-to-back launches queued
+behind a spin kernel, path walls in s by the host clock around a
+synchronized call.  The script prints the card's name and power limit and
+one JSON line.  ``--profile DIR`` also writes a ``torch.profiler`` breakdown
+by kernel of one warm ARD ``fit_iterative`` at N=65536 and of one exact fit
+at N=16384 to DIR/profile.json and prints its summary.  Needs a CUDA card;
+exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+import chip_smoke as cs  # imports only the standard library here
+
+
+def wall_s(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def measure(dev) -> dict:
+    import dataclasses
+
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch import cli
+    from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    cfg1 = CONFIGS["config1_fit_se500"]
+    k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
+    x16, x4 = (torch.as_tensor(make_data(dataclasses.replace(cfg1.data, n=n), "float32")[0],
+                               device=dev) for n in (cs.K_N, cs.GRAD_N))
+    noise = torch.tensor(cs.ITER_NOISE, dtype=torch.float32, device=dev)
+    K16 = pw.pairwise_matrix(k, x16, x16, noise=0.1, jitter=1e-6)
+
+    # B3: one tile, 64 tiles, the blocked factorization, the exact fit
+    tile = K16[:128, :128].contiguous()
+    tiles = torch.stack([K16[i:i + 128, i:i + 128] for i in range(0, 64 * 128, 128)]).contiguous()
+    out["chol_tile_ms"] = cs.time_ms(lambda: bc.chol_tile(tile), 200)
+    out["cholesky_ex_tile_ms"] = cs.time_ms(lambda: torch.linalg.cholesky_ex(tile), 200)
+    out["chol_tile_batch64_ms"] = cs.time_ms(lambda: bc.chol_tile(tiles), 50)
+    out["cholesky_ex_batch64_ms"] = cs.time_ms(lambda: torch.linalg.cholesky_ex(tiles), 50)
+    out[f"cholesky_blocked_{cs.K_N}_ms"] = cs.time_ms(lambda: bc.cholesky_blocked(K16), 5)
+    out[f"linalg_cholesky_{cs.K_N}_ms"] = cs.time_ms(lambda: torch.linalg.cholesky(K16), 5)
+    for n in cs.FIT_NS:
+        cfg = dataclasses.replace(cfg1, data=dataclasses.replace(cfg1.data, n=n))
+        out[f"exact_fit_wall_s_{n}"] = cli.run_config(cfg, device=dev)["fit_wall_s"]
+
+    # the other exact-path kernels
+    out[f"B1_{cs.K_N}_ms"] = cs.time_ms(lambda: pw.pairwise_matrix(k, x16, x16, noise=noise,
+                                                                  jitter=1e-6), 10)
+    out[f"B2a_{cs.GRAD_N}_ms"] = cs.time_ms(lambda: pw.pairwise_jacobian(k, x4, x4), 10)
+    out[f"B2b_{cs.GRAD_N}_pair_ms"] = cs.time_ms(
+        lambda: pw.pairwise_hessian(k, x4, x4, pair=(0, 1)), 10)
+    del K16
+    torch.cuda.empty_cache()
+
+    # B4-ARD and the ARD fit
+    xa, ya, ka = cs.ard_problem(cs.ITER_N, dev)
+    for r in (1, 8, 64):
+        v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
+        out[f"B4_ARD_r{r}_ms"] = cs.time_ms(
+            lambda: pw.kernel_matvec_fused(ka, xa, v, noise, cs.ITER_JITTER), 5)
+    for key in ("ard_fit_iterative_wall_s", "ard_fit_iterative_warm_wall_s"):
+        out[key] = wall_s(lambda: gpx.fit_iterative(ka, xa, ya, cs.ITER_NOISE, cs.seed(12),
+                                                    **cs.ITER_OPTS))
+    xa16 = xa[:cs.K_N].contiguous()
+    out[f"B6_{cs.K_N}_ms"] = cs.time_ms(lambda: pw.pairwise_matrix_ard(
+        ka, xa16, xa16, noise=noise, jitter=cs.ITER_JITTER), 10)
+
+    # the SE products
+    xs, _, ks = cs.sine_problem(cs.ITER_N, dev)
+    for r in (1, 8):
+        v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
+        out[f"B4_SE_r{r}_ms"] = cs.time_ms(
+            lambda: pw.kernel_matvec_fused(ks, xs, v, noise, cs.ITER_JITTER), 10)
+    u = torch.randn(cs.ITER_N, 9, generator=gen).to(dev)
+    out["B5_r9_ms"] = cs.time_ms(lambda: pw.kernel_jacvec_fused(ks, xs, u), 5)
+    return out
+
+
+def profile(dev, out_dir: str) -> dict:
+    """Device time by kernel of one warm ARD fit and one exact fit at K_N."""
+    import dataclasses
+
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    xa, ya, ka = cs.ard_problem(cs.ITER_N, dev)
+    cfg1 = CONFIGS["config1_fit_se500"]
+    x, y, _ = (torch.as_tensor(a, device=dev)
+               for a in make_data(dataclasses.replace(cfg1.data, n=cs.K_N), "float32"))
+    k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
+    runs = {
+        f"ard_fit_iterative_{cs.ITER_N}": lambda: gpx.fit_iterative(
+            ka, xa, ya, cs.ITER_NOISE, cs.seed(12), **cs.ITER_OPTS),
+        f"exact_fit_{cs.K_N}": lambda: gpx.fit(k, x, y, cfg1.fit.noise, cfg1.fit.jitter),
+    }
+    result = {}
+    for name, fn in runs.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = wall_s(fn)
+        by_name = collections.Counter()
+        counts = collections.Counter()
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[evt.name] += evt.device_time_total / 1e3
+                counts[evt.name] += 1
+        result[name] = {"wall_s": wall, "device_ms": sum(by_name.values()),
+                        "kernels": [{"name": n[:120], "ms": t, "launches": counts[n]}
+                                    for n, t in by_name.most_common(25)]}
+    os.makedirs(out_dir, exist_ok=True)
+    Path(out_dir, "profile.json").write_text(json.dumps(result, indent=1))
+    return {name: {"wall_s": r["wall_s"], "device_ms": r["device_ms"],
+                   "top": [(k["name"][:60], round(k["ms"], 3), k["launches"])
+                           for k in r["kernels"][:8]]}
+            for name, r in result.items()}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    parser.add_argument("--profile", default=None, metavar="DIR")
+    args = parser.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))  # ahead of this file's directory
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_timing: CUDA is not available; nothing was run", file=sys.stderr)
+        return 1
+    card = cs.card_name_and_power_limit()
+    import gaussian_processes_tpu_torch as gpx
+
+    dev = torch.device("cuda", 0)
+    print(card, flush=True)
+    result = {"root": args.root, "package": str(Path(gpx.__file__).parent), "card": card,
+              **measure(dev)}
+    if args.profile:
+        result["profile"] = profile(dev, args.profile)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

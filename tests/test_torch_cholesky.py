@@ -138,3 +138,33 @@ def test_tile_wrapper_checks():
     before = dict(_build.launch_counts)
     tbc.cholesky_blocked(torch.as_tensor(_spd(256, 9)))
     assert dict(_build.launch_counts) == before  # CPU: plain version, no launch
+
+
+# -- the fused inverse: cholesky_blocked takes (L_kk, L_kk^-1) from one B3 call
+
+# float32: two factorizations of these matrices (kappa ~ 1e2 to 1e3) differ by
+# up to ~kappa u, so the factor and the tile inverse are held to 1e-4 relative
+# Frobenius distance; float64 to REL
+F32_REL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n", [128, 300, 1000])
+def test_blocked_inverse_path_matches_jnp(n, dtype):
+    A = _spd(n, 3 * n, "kernel").astype(dtype)
+    rel = REL if dtype == "float64" else F32_REL
+    want = np.asarray(jnp.linalg.cholesky(jnp.asarray(A)), dtype=np.float64)
+    got = tbc.cholesky_blocked(torch.as_tensor(A))
+    assert got.dtype == getattr(torch, dtype)
+    assert _rel(got.double().numpy(), want) < rel
+    assert np.abs(np.triu(got.numpy(), 1)).max() == 0.0
+    # the panels' (L_kk, L_kk^-1) against jnp: the diagonal tiles of A's
+    # leading 128-multiple, as one batch
+    m = n // 128 * 128
+    tiles = np.stack([A[i:i + 128, i:i + 128] for i in range(0, m, 128)])
+    L, Linv = tbc.chol_tile_inv(torch.as_tensor(tiles))
+    jL = jnp.linalg.cholesky(jnp.asarray(tiles))
+    want_inv = np.asarray(jnp.linalg.inv(jL), dtype=np.float64)
+    assert _rel(L.double().numpy(), np.asarray(jL, dtype=np.float64)) < rel
+    assert _rel(Linv.double().numpy(), want_inv) < rel
+    assert np.abs(np.triu(Linv.numpy(), 1)).max() == 0.0

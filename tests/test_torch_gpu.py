@@ -10,7 +10,8 @@ largest value (the kernel contracts multiply-adds into FMAs, the plain
 version rounds each operation).  B3: relative Frobenius distance from the
 plain factor 3e-5 (f32; two float32 factorizations of a tile with
 condition number ~1e4 differ by up to ~1e-5) and 1e-12 (f64), and backward
-error ||L L^T - A|| / ||A|| 1e-6 (f32) and 1e-13 (f64).
+error ||L L^T - A|| / ||A|| 1e-6 (f32) and 1e-13 (f64); B3's inverse within
+3e-4 (f32) and 1e-11 (f64) of the plain one.
 """
 
 import numpy as np
@@ -93,6 +94,62 @@ def test_chol_tile_matches_plain(cuda, dtype, rel, back):
     assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
 
 
+@pytest.mark.parametrize("dtype,rel,back,inv", [(torch.float32, 3e-5, 1e-6, 3e-4),
+                                                (torch.float64, 1e-12, 1e-13, 1e-11)])
+def test_chol_tile_batch_of_64_with_bad_tiles(cuda, dtype, rel, back, inv):
+    """B3 with and without its inverse over 64 kernel tiles, four of them
+    not positive definite and four holding a NaN.  The inverse is held to
+    the plain one within ~kappa(L) u (float32 3e-4, float64 1e-11)."""
+    k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64)
+    tiles = []
+    for s in range(16):
+        x = _x(512, 100 + s, torch.float64, "cpu")
+        K = k(x, x) + 0.01 * torch.eye(512, dtype=torch.float64)
+        tiles += [K[i:i + 128, i:i + 128] for i in range(0, 512, 128)]
+    batch = torch.stack(tiles)
+    not_pd, has_nan = [3, 17, 40, 63], [5, 22, 41, 58]
+    for b in not_pd:
+        batch[b, 60, 60] = -1.0
+    for b in has_nan:
+        batch[b, 90, 11] = batch[b, 11, 90] = float("nan")
+    batch = batch.to(device=cuda, dtype=dtype).contiguous()
+    good = [b for b in range(64) if b not in not_pd + has_nan]
+    before = _build.launch_counts["chol_tile"]
+    L = tbc.chol_tile(batch)
+    L2, Linv = tbc.chol_tile_inv(batch)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["chol_tile"] == before + 2
+    Lr, Linv_r = tbc.chol_tile_inv_reference(batch)
+    assert float(torch.linalg.norm(L[good] - Lr[good]) / torch.linalg.norm(Lr[good])) < rel
+    A = batch[good].double()
+    LLt = L[good].double() @ L[good].double().mT
+    assert float(torch.linalg.norm(LLt - A) / torch.linalg.norm(A)) < back
+    assert torch.equal(L[good], L2[good])
+    assert float(torch.linalg.norm(Linv[good] - Linv_r[good])
+                 / torch.linalg.norm(Linv_r[good])) < inv
+    lower = torch.tril(torch.ones(128, 128, dtype=torch.bool, device=cuda))
+    for t in (L, L2, Linv):
+        assert all(torch.isnan(t[b][lower]).all() for b in not_pd + has_nan)
+        assert (torch.triu(t, 1) == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_tile_takes_a_view_at_any_offset(cuda, dtype):
+    """A contiguous view whose address is not a multiple of 16 bytes gives
+    the same factor and inverse as an aligned copy of it."""
+    x = _x(128, 12, torch.float64, "cpu")
+    K = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64)(x, x) + 0.01 * torch.eye(128, dtype=torch.float64)
+    buf = torch.empty(1 + 128 * 128, dtype=dtype, device=cuda)
+    A = buf[1:].view(128, 128)
+    A.copy_(K)
+    assert A.is_contiguous() and A.data_ptr() % 16 != 0
+    L, Linv = tbc.chol_tile_inv(A)
+    torch.cuda.synchronize()
+    assert torch.equal(L, tbc.chol_tile(A.clone()))
+    L2, Linv2 = tbc.chol_tile_inv(A.clone())
+    assert torch.equal(L, L2) and torch.equal(Linv, Linv2)
+
+
 def test_chol_tile_non_pd_gives_nan(cuda):
     A = torch.eye(128, dtype=torch.float32, device=cuda)
     A[40, 40] = -1.0
@@ -152,6 +209,28 @@ def test_matvec_kernel_matches_plain(cuda, family, dtype, n, r):
     bound = tpw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
     _within_row_sums(got, want, bound, dtype)
     assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))  # deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", [1, 8, 9, 64, 300])
+@pytest.mark.parametrize("n", [129, 777, 1000])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 16])
+def test_ard_matvec_kernel_over_dims(cuda, D, n, r, dtype):
+    """B4-ARD (one instantiation per D) against the plain product, and a
+    repeat that must be bit-identical."""
+    k = gpx.ARDGaussianKernel(1.1, torch.linspace(0.6, 2.4, D, dtype=torch.float64),
+                              dtype=dtype, device=cuda)
+    x = _points(n, D, 20 + D, dtype, cuda)
+    g = torch.Generator().manual_seed(n + r)
+    v = torch.randn(n, r, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+    before = _build.launch_counts["kernel_matvec_ard"]
+    got = tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["kernel_matvec_ard"] == before + 1
+    want = tpw.kernel_matvec_fused_reference(k, x, v, 0.1, 1e-6)
+    bound = tpw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
+    _within_row_sums(got, want, bound, dtype)
+    assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
