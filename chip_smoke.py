@@ -8,7 +8,8 @@
 3. Holds each kernel against its plain PyTorch version on the card, at small
    shapes (SE, periodic and ARD, square and rectangular, sizes that are not
    tile multiples, with and without the diagonal, 1 to 300 right-hand sides,
-   B4-ARD over D = 1..16, B3 with and without its inverse over a batch of 64
+   B4-ARD over D = 1..16 and B5 over n and r with bit-identical repeats, B3
+   with and without its inverse over a batch of 64
    tiles with non-PD and NaN ones, float32 and float64) and at the shapes of
    the main paths, where it also times both with CUDA events, times the
    PyTorch calls for the same function where there are any
@@ -120,6 +121,15 @@ F32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 # per element, P Jacobian values 2Pr.  The Cholesky of a b x b tile is
 # b^3 / 3, its triangular inverse b^3 / 3 more.
 SE_K_OPS, SE_JAC_OPS, SE_HESS_PLANE_OPS = 4, 5, 6
+# periodic: subtract, scale by 1 / 2p, sine, scale, square, exp (6); its
+# three Jacobian values E, E g^2 and E d sin(2u) add a second sine with its
+# argument's product and three products (11); a sine counts 1, as an exp does
+PERIODIC_K_OPS, PERIODIC_JAC_OPS = 6, 11
+# what the special-function units alone allow: 16 results per SM per clock
+# (exponentials, and sines were they taken there), an eighth of the FMA
+# lanes, at the clock that F32_PEAK_FLOPS implies (2 flops per lane per
+# clock).  Printed beside bound_ms, which counts an exp as one operation.
+SFU_PER_S = F32_PEAK_FLOPS / 2 / 8
 
 
 def ard_ops(dim: int) -> int:
@@ -162,6 +172,11 @@ def bound(ops: float, nbytes: float) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sfu_floor_ms(count: float) -> float:
+    """The least time for ``count`` special-function results, in ms."""
+    return count / SFU_PER_S * 1e3
 
 
 def card_name_and_power_limit() -> str:
@@ -556,11 +571,42 @@ def check_ard_products_small(check, dev):
             check(f"B4-ARD D={D} {dname} repeats bit-identical (0 = yes)", 0.0 if same else 1.0, 0.0)
 
 
+def check_jac_products_small(check, dev):
+    """B5 against its plain version over SE and periodic, n = 129, 777, 1000
+    and r = 1, 8, 9, 64, 300, float32 and float64, each product repeated and
+    required bit-identical; one check per (dtype, family) holds the largest
+    violation of its 15 shapes."""
+    import torch
+    from gaussian_processes_tpu_torch import GaussianKernel, PeriodicKernel
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("B5 vs plain over n and r:", flush=True)
+    gen = torch.Generator().manual_seed(4)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        kernels = {"se": GaussianKernel(1.3, 0.7, dtype=dtype, device=dev),
+                   "periodic": PeriodicKernel(0.9, 1.1, 2.0, dtype=dtype, device=dev)}
+        for fam, k in kernels.items():
+            worst, same = 0.0, True
+            for n in (129, 777, 1000):
+                x = (torch.rand(n, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+                J_abs = pw.pairwise_jacobian_reference(k, x, x).abs()
+                for r in (1, 8, 9, 64, 300):
+                    u = torch.randn(n, r, generator=gen, dtype=torch.float64).to(dev, dtype)
+                    got = pw.kernel_jacvec_fused(k, x, u)
+                    want = pw.kernel_jacvec_fused_reference(k, x, u)
+                    worst = max(worst, product_violation(got, want, J_abs @ u.abs(), dname)[1])
+                    same &= torch.equal(got, pw.kernel_jacvec_fused(k, x, u))
+            check(f"B5 {fam} {dname}, 15 shapes", worst, 1.0)
+            check(f"B5 {fam} {dname} repeats bit-identical (0 = yes)", 0.0 if same else 1.0, 0.0)
+
+
 def check_products_at_slice(check, dev, rows):
     """Phase 3b, matrix-free kernels at the main path's shapes (float32),
     timed against their plain versions and against the strip matvec (B1
     strips + cuBLAS) that ``kernel_matvec(impl="strip")`` runs."""
     import torch
+    from gaussian_processes_tpu_torch import PeriodicKernel
     from gaussian_processes_tpu_torch.ops import krylov
     from gaussian_processes_tpu_torch.ops import pairwise as pw
 
@@ -570,47 +616,75 @@ def check_products_at_slice(check, dev, rows):
     x, _, k = sine_problem(ITER_N, dev)
     noise = torch.tensor(ITER_NOISE, dtype=torch.float32, device=dev)
 
-    def record(key, label, kern, plain, bound_fn, iters, plain_iters, work):
+    def record(key, label, kern, plain, bound_fn, iters, plain_iters, work, sfu):
         got, want = kern(), plain()
         err, viol = product_violation(got, want, bound_fn(), "float32")
         del got, want
         rows[key] = {"max_abs_err": err, "ms": time_ms(kern, iters),
-                     "plain_ms": time_ms(plain, plain_iters), **bound(*work), "library_ms": None}
+                     "plain_ms": time_ms(plain, plain_iters), **bound(*work),
+                     "sfu_floor_ms": sfu_floor_ms(sfu), "library_ms": None}
         print(f"  {label}: kernel {rows[key]['ms']:.4f} ms, plain {rows[key]['plain_ms']:.4f} ms, "
-              f"max_abs_err {err:.3e}", flush=True)
+              f"bound {rows[key]['bound_ms']:.4f} ms, special-function floor "
+              f"{rows[key]['sfu_floor_ms']:.4f} ms, max_abs_err {err:.3e}", flush=True)
         check(label, viol, 1.0)
         torch.cuda.empty_cache()
 
-    for r, key in ((1, "kernel_matvec"), (8, "kernel_matvec_r8")):
+    def matvec_rows(kernel, xk, label, k_ops, sfu_per_elem, keys, dim=1, iters=(5, 2)):
+        for r, key in keys:
+            v = torch.randn(ITER_N, r, generator=gen).to(dev)
+            record(key, f"{label} N={ITER_N} r={r}",
+                   lambda: pw.kernel_matvec_fused(kernel, xk, v, noise, ITER_JITTER),
+                   lambda: pw.kernel_matvec_fused_reference(kernel, xk, v, noise, ITER_JITTER),
+                   lambda: pw.kernel_matvec_fused_reference(kernel, xk, v.abs(), noise,
+                                                            ITER_JITTER),
+                   *iters, ((k_ops + 2 * r) * n2, 4 * (ITER_N * dim + 2 * ITER_N * r)),
+                   sfu_per_elem * n2)
+
+    def jacvec_row(kernel, key, label, jac_ops, sfu_per_elem, bound_fn):
+        P, r = kernel.n_params, 9
+        u = torch.randn(ITER_N, r, generator=gen).to(dev)
+        record(key, f"{label} N={ITER_N} r={r}",
+               lambda: pw.kernel_jacvec_fused(kernel, x, u),
+               lambda: pw.kernel_jacvec_fused_reference(kernel, x, u),
+               lambda: bound_fn(u), 5, 2,
+               ((jac_ops + 2 * P * r) * n2, 4 * (ITER_N + r * ITER_N + P * r * ITER_N)),
+               sfu_per_elem * n2)
+
+    # r = 1 (the CG solve for alpha) is the row of the kernel JSON line; r = 8
+    # (the SLQ probes), r = 9 (the stochastic gradient's [y, probes]) and
+    # r = 64 (predict_diag_iterative) beside it
+    matvec_rows(k, x, "B4 SE", SE_K_OPS, 1,
+                ((1, "kernel_matvec"), (8, "kernel_matvec_r8"), (9, "kernel_matvec_r9"),
+                 (64, "kernel_matvec_r64")), iters=(10, 3))
+    for r in (1, 8):
         v = torch.randn(ITER_N, r, generator=gen).to(dev)
-        record(key, f"B4 SE N={ITER_N} r={r}",
-               lambda: pw.kernel_matvec_fused(k, x, v, noise, ITER_JITTER),
-               lambda: pw.kernel_matvec_fused_reference(k, x, v, noise, ITER_JITTER),
-               lambda: pw.kernel_matvec_fused_reference(k, x, v.abs(), noise, ITER_JITTER),
-               10, 3, ((SE_K_OPS + 2 * r) * n2, 4 * (ITER_N + 2 * ITER_N * r)))
         strip = lambda: krylov.kernel_matvec(k, x, v, noise, ITER_JITTER, block_size=2048,  # noqa: E731
                                              impl="strip")
         rows[f"strip_matvec_r{r}"] = {"ms": time_ms(strip, 3)}
         print(f"  kernel_matvec(impl='strip') N={ITER_N} r={r}: "
               f"{rows[f'strip_matvec_r{r}']['ms']:.4f} ms", flush=True)
-    u = torch.randn(ITER_N, 9, generator=gen).to(dev)
     # SE's dK/dh and dK/dw are >= 0, so the plain product with |U| is the bound
-    record("kernel_jacvec", f"B5 SE N={ITER_N} r=9",
-           lambda: pw.kernel_jacvec_fused(k, x, u),
-           lambda: pw.kernel_jacvec_fused_reference(k, x, u),
-           lambda: pw.kernel_jacvec_fused_reference(k, x, u.abs()), 5, 2,
-           ((SE_JAC_OPS + 2 * 2 * 9) * n2, 4 * (ITER_N + 9 * ITER_N + 2 * 9 * ITER_N)))
+    jacvec_row(k, "kernel_jacvec", "B5 SE", SE_JAC_OPS, 1,
+               lambda u: pw.kernel_jacvec_fused_reference(k, x, u.abs()))
+    # periodic, two periods over the data: not on the fits' path, timed beside
+    kp = PeriodicKernel(1.0, 1.0, 0.5, dtype=torch.float32, device=dev)
+    matvec_rows(kp, x, "B4 periodic", PERIODIC_K_OPS, 2,
+                ((1, "kernel_matvec_periodic"), (8, "kernel_matvec_periodic_r8")))
+
+    def periodic_jac_bound(u, block=2048):  # |dK/dp| needs the planes' absolute values
+        out = torch.zeros(3, ITER_N, u.shape[1], device=dev)
+        for j in range(0, ITER_N, block):
+            out += pw.pairwise_jacobian_reference(kp, x, x[j:j + block]).abs() @ u[j:j + block].abs()
+        return out
+
+    jacvec_row(kp, "kernel_jacvec_periodic", "B5 periodic", PERIODIC_JAC_OPS, 3,
+               periodic_jac_bound)
     xa, _, ka = ard_problem(ITER_N, dev)
     # r = 8 (the SLQ probes) is the row of the kernel JSON line; r = 1 (the
     # CG solve for alpha) and r = 64 (predict_diag_iterative) beside it
-    for r, key in ((8, "kernel_matvec_ard"), (1, "kernel_matvec_ard_r1"),
-                   (64, "kernel_matvec_ard_r64")):
-        v = torch.randn(ITER_N, r, generator=gen).to(dev)
-        record(key, f"B4-ARD N={ITER_N} D={ARD_DIM} r={r}",
-               lambda: pw.kernel_matvec_fused(ka, xa, v, noise, ITER_JITTER),
-               lambda: pw.kernel_matvec_fused_reference(ka, xa, v, noise, ITER_JITTER),
-               lambda: pw.kernel_matvec_fused_reference(ka, xa, v.abs(), noise, ITER_JITTER),
-               5, 2, ((ard_ops(ARD_DIM) + 2 * r) * n2, 4 * (ITER_N * ARD_DIM + 2 * ITER_N * r)))
+    matvec_rows(ka, xa, f"B4-ARD D={ARD_DIM}", ard_ops(ARD_DIM), 1,
+                ((8, "kernel_matvec_ard"), (1, "kernel_matvec_ard_r1"),
+                 (64, "kernel_matvec_ard_r64")), dim=ARD_DIM)
     xa16 = xa[:K_N].contiguous()
     kern = lambda: pw.pairwise_matrix_ard(ka, xa16, xa16, noise=noise, jitter=ITER_JITTER)  # noqa: E731
     plain = lambda: pw.pairwise_matrix_ard_reference(ka, xa16, xa16, noise=noise,  # noqa: E731
@@ -623,6 +697,20 @@ def check_products_at_slice(check, dev, rows):
     print(f"  B6 {K_N}^2 D={ARD_DIM}+diag: kernel {rows['pairwise_ard']['ms']:.4f} ms, plain "
           f"{rows['pairwise_ard']['plain_ms']:.4f} ms, max_abs_err {err:.3e}", flush=True)
     check(f"B6 {K_N}x{K_N} D={ARD_DIM}+diag", viol, 1.0)
+    # one pivot column, as krylov.pivoted_cholesky builds it once per rank
+    # step: K(x, x[piv]), (ITER_N, 1)
+    piv = xa[ITER_N // 3:ITER_N // 3 + 1].contiguous()
+    kern = lambda: pw.pairwise_matrix_ard(ka, xa, piv)  # noqa: E731
+    plain = lambda: pw.pairwise_matrix_ard_reference(ka, xa, piv)  # noqa: E731
+    err, viol = plane_violation(kern(), plain(), "float32")
+    rows["pairwise_ard_pivot_column"] = {
+        "max_abs_err": err, "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
+        **bound(ard_ops(ARD_DIM) * ITER_N, 4 * (ITER_N * ARD_DIM + ARD_DIM + ITER_N))}
+    print(f"  B6 pivot column {ITER_N}x1 D={ARD_DIM}: kernel "
+          f"{rows['pairwise_ard_pivot_column']['ms']:.5f} ms, plain "
+          f"{rows['pairwise_ard_pivot_column']['plain_ms']:.5f} ms, bound "
+          f"{rows['pairwise_ard_pivot_column']['bound_ms']:.2e} ms", flush=True)
+    check(f"B6 pivot column {ITER_N}x1 D={ARD_DIM}", viol, 1.0)
     torch.cuda.empty_cache()
 
 
@@ -922,6 +1010,7 @@ def main() -> int:
     check_kernels_small(check, dev)
     check_products_small(check, dev)
     check_ard_products_small(check, dev)
+    check_jac_products_small(check, dev)
     slice_rows = check_kernels_at_slice(check, dev)
     check_products_at_slice(check, dev, slice_rows)
 
@@ -962,9 +1051,13 @@ def main() -> int:
         "grad_hess_wall_s": {d: out[f"grad_hess_{d}"][4] for d in ("float32", "float64")},
         "cholesky_blocked": slice_rows["cholesky_blocked"],
         "pairwise_hess_all_planes": slice_rows["pairwise_hess_all_planes"],
-        "kernel_matvec_r8": slice_rows["kernel_matvec_r8"],
-        **{key: slice_rows[key] for key in ("chol_tile", "chol_tile_batch64",
-                                            "kernel_matvec_ard_r1", "kernel_matvec_ard_r64")},
+        **{key: slice_rows[key] for key in (
+            "chol_tile", "chol_tile_batch64", "kernel_matvec_r8", "kernel_matvec_r9",
+            "kernel_matvec_r64",
+            "kernel_matvec_periodic", "kernel_matvec_periodic_r8", "kernel_jacvec_periodic",
+            "kernel_matvec_ard_r1", "kernel_matvec_ard_r64", "pairwise_ard_pivot_column")},
+        "sfu_floor_ms": {row: slice_rows[row]["sfu_floor_ms"] for _, _, row, _, _ in KERNEL_ROWS
+                         if "sfu_floor_ms" in slice_rows[row]},
         "launches_by_path": launches_by_path,
         "strip_matvec_ms": {r: slice_rows[f"strip_matvec_r{r}"]["ms"] for r in (1, 8)},
         "iterative": iter_summary,

@@ -1,5 +1,6 @@
-// Closed-form kernel values and hyperparameter derivatives, shared by the
-// pairwise builders (B1, B2a, B2b, B6) and the matrix-free products (B4, B5).
+// Closed-form kernel values and hyperparameter derivatives of the pairwise
+// kernels (B1, B2a, B2b, B6).  The matrix-free products (B4, B5: matvec.cu)
+// evaluate the same functions with every constant folded out of the element.
 //
 // Each form mirrors, expression for expression, the static k_fn / jac_fn /
 // hess_fn of its Python class (models/gaussian.py, models/periodic.py), so

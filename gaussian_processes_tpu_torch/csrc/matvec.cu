@@ -8,26 +8,56 @@
 //                                 on the global diagonal
 //
 // B4 / B5.  K (and dK/dtheta) is never stored: device memory sees x, V and
-// the (n, r) output only, so the bound on the H100 is arithmetic, about n^2
-// closed-form evaluations (one exp, plus a sin for periodic) and n^2 r
-// multiply-adds.  Each element is evaluated
-// once and applied to every column of V that the block holds, with FP32 /
-// FP64 FMAs on the CUDA cores: no TF32, the counterpart of the Pallas
-// body's Precision.HIGHEST.
+// the (P, n, r) output only, so what bounds them on the H100 is arithmetic:
+// n^2 closed-form evaluations (one exponential each, plus a sine for
+// periodic) and n^2 r (B5: n^2 P r) multiply-adds, all FP32 / FP64 FMAs on
+// the CUDA cores: no TF32, the counterpart of the Pallas body's
+// Precision.HIGHEST.  With one right-hand side the exponentials set the
+// pace: an SM's special-function unit starts 16 ex2 a clock, an eighth of
+// its FMA rate, so 65536^2 of them take at least 1.03 ms; from about 4
+// right-hand sides on, the FMAs do.  The design keeps the operations and
+// the shared-memory loads per element (i, j) few:
 //
-// A block of kRowsMv threads owns kRowsMv consecutive rows, one row per
-// thread, and a chunk of RC <= 16 columns of V (grid axis y), so r = m
-// right-hand sides work.  It walks its range of columns j in tiles of kTile,
-// staging x_j and V[j, chunk] in shared memory; every thread reads the same
-// x_j and V[j, c], a broadcast without bank conflicts.  A tile's kTile
+// * every constant is folded out of the element.  SE:
+//   t = (x_i - x_j) s with s = sqrt(log2(e) / 2) / w, E = 2^(-t^2) as one
+//   ex2.approx (2 ulp, as exp2f) in float32; s = sqrt(1/2) / w and exp in
+//   float64.  B5's two values are E and E t^2.  h^2 (B5: 2h and
+//   h^2 / (c^2 w), c^2 = s^2 w^2) multiplies the row's double sums once, at
+//   the store.  Periodic: g = sin((x_i - x_j) / 2p) a with a = 2 s,
+//   E = 2^(-g^2); B5's values are E, E g^2 and E d sin u cos u from one
+//   sincos.  The difference is taken first and then scaled: coordinates
+//   pre-scaled by s, as B4-ARD takes them, reach +-278 at N = 65536 with
+//   100 points per lengthscale, where a float32 ulp of x s moves an entry
+//   of K by 1e-4 relative (tests/test_torch_se_products.py holds the form
+//   to this);
+// * a thread owns ROWS rows (rows t, t + 128, ...; ROWS * P * RC <= 36
+//   accumulators, at most 8 / P rows), so every column staged in shared memory
+//   (x_j read four columns at a time, its RC right-hand sides as 16-byte
+//   broadcast loads) feeds ROWS elements, and the ROWS independent
+//   exp -> FMA chains hide each other's latency;
+// * the chunk of right-hand sides a block holds is 1, 4, 8, 9 or 16: the
+//   stochastic gradient solves and differentiates [y, 8 probes], r = 9,
+//   which a chunk of 16 would pad with 7 columns of zeros.
+//
+// On an H100 80GB HBM3 at 700 W, float32, N = 65536 (kernel_timing.py, one
+// thread per row and the unfolded forms before -> this design): SE B4
+// 2.83 -> 1.18 ms at r = 1 (87% of the special-function floor), 4.27 ->
+// 2.45 at r = 8, 6.92 -> 2.38 at r = 9; SE B5 27.4 -> 4.63 ms at r = 9;
+// periodic, where the accurate sinf sets the pace, B4 12.1 -> 5.22 ms at
+// r = 1 and B5 51.3 -> 11.7 at r = 9.  Blocks per SM, rows per thread,
+// the tile width and minimum-blocks launch bounds were swept on the card
+// and moved no time by more than 8%.
+//
+// A block of kThreads threads walks its range of columns j in tiles of
+// kTile, staging x_j and V[j, chunk] in shared memory.  A tile's kTile
 // products are summed in T, and the tile sums are added across the row in
 // double (ard_matvec.cuh says why); the two-level sum costs one add per tile.
-// To give 132 SMs enough blocks at r = 1 the column range is split over grid
-// axis z; each split writes its partial products to a workspace and a second
-// kernel adds them in split order (splits.cuh), so a product gives the same
-// bits on every call (no float atomics: CG and its early exit want a
-// deterministic operator).
-// Ragged edges are bounds-checked; flat indices are 64-bit (65536^2 > 2^31).
+// To give 132 SMs enough blocks the column range is split over grid axis z;
+// each split writes its partial products to a workspace and a second kernel
+// adds them in split order (splits.cuh), so a product gives the same bits on
+// every call (no float atomics: CG and its early exit want a deterministic
+// operator).  Ragged edges are bounds-checked; flat indices are 64-bit
+// (65536^2 > 2^31).
 //
 // B6 is B1 (pairwise.cu) over D dimensions: a block of kArdCols threads
 // spans neighbouring columns, so stores coalesce, and each thread keeps its
@@ -43,180 +73,317 @@
 #include <cuda_runtime.h>
 
 #include "closed_forms.cuh"
+#include "product_common.cuh"
 #include "splits.cuh"
 
 namespace {
 
-constexpr int kRowsMv = 128;     // B4/B5: threads per block, one row each
-constexpr int kTile = 128;       // B4/B5: columns of K per shared-memory tile
-constexpr int kMaxArdDim = 16;   // largest D the ARD kernels take
-constexpr int kArdCols = 128;    // B6: threads per block, one column each
-constexpr int kArdRows = 16;     // B6: rows walked by each thread
-constexpr int kMaxGrid = 65535;  // grid axes y and z
+constexpr int kThreads = 128;     // B4/B5: threads per block
+constexpr int kTile = 128;        // B4/B5: columns of K per shared-memory tile
+constexpr int kAccBudget = 36;    // B4/B5: accumulators (ROWS * P * RC) a thread holds
+constexpr int kMaxRows = 8;       // B4/B5: most rows a thread owns
+constexpr int kBlocksPerSm = 16;  // B4/B5: blocks per SM the column splits aim for
+constexpr int kMaxArdDim = 16;    // largest D the ARD kernels take
+constexpr int kArdCols = 128;     // B6: threads per block, one column each
+constexpr int kArdRows = 16;      // B6: rows walked by each thread
+constexpr int kMaxGrid = 65535;   // grid axes y and z
 
 // -- what one product evaluates per element (i, j) ---------------------------
+//
+// Each form gives kVals unscaled values per element and the constant that
+// multiplies each value's row sums.  fold_c2 is c^2 in exp(-q / 2) =
+// base^(-c^2 q): log2(e) / 2 for float32's ex2, 1 / 2 for float64's exp.
 
-// B4: k(x_i - x_j)
-template <typename T, typename Form>
-struct KEval {
+template <typename T>
+__host__ __device__ constexpr double fold_c2() {
+  return sizeof(T) == 4 ? 0.72134752044448170368 : 0.5;
+}
+
+__device__ __forceinline__ void dsincos(float v, float* s, float* c) { sincosf(v, s, c); }
+__device__ __forceinline__ void dsincos(double v, double* s, double* c) { sincos(v, s, c); }
+
+// B4, SE: h^2 exp(-d^2 / (2 w^2)) = h^2 base^(-t^2), t = d s
+template <typename T>
+struct SEValue {
   static constexpr int kVals = 1;
-  static constexpr int kDimCap = 1;
-  T th[Form::P];
-  T xi;
-  __device__ KEval(const T* params, int) {
-#pragma unroll
-    for (int q = 0; q < Form::P; ++q) th[q] = params[q];
+  T s;
+  double scale[kVals];
+  __device__ explicit SEValue(const T* th) {
+    const double h = th[0], w = th[1];
+    s = static_cast<T>(sqrt(fold_c2<T>()) / w);
+    scale[0] = h * h;
   }
-  __device__ void set_row(const T* x, int row) { xi = x[row]; }
-  __device__ void eval(const T* xj, T* vals) const {
-    vals[0] = Form::k(xi - xj[0], th);
-  }
-};
-
-// B5: dK/dtheta_p (x_i - x_j), p < P
-template <typename T, typename Form>
-struct JacEval {
-  static constexpr int kVals = Form::P;
-  static constexpr int kDimCap = 1;
-  T th[Form::P];
-  T xi;
-  __device__ JacEval(const T* params, int) {
-#pragma unroll
-    for (int q = 0; q < Form::P; ++q) th[q] = params[q];
-  }
-  __device__ void set_row(const T* x, int row) { xi = x[row]; }
-  __device__ void eval(const T* xj, T* vals) const {
-    Form::jac(xi - xj[0], th, vals);
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = (xi - xj) * s;
+    val[0] = neg_exp(t * t);
   }
 };
 
-// -- the product: out[z][q][i][c] = sum_{j in split z} eval_q(i, j) V[j][c] --
+// B5, SE: dK/dh = 2h E, dK/dw = h^2 E d^2 / w^3 = h^2 / (c^2 w) E t^2
+template <typename T>
+struct SEJac {
+  static constexpr int kVals = 2;
+  T s;
+  double scale[kVals];
+  __device__ explicit SEJac(const T* th) {
+    const double h = th[0], w = th[1];
+    s = static_cast<T>(sqrt(fold_c2<T>()) / w);
+    scale[0] = 2.0 * h;
+    scale[1] = h * h / (fold_c2<T>() * w);
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = (xi - xj) * s;
+    const T t2 = t * t;
+    const T E = neg_exp(t2);
+    val[0] = E;
+    val[1] = E * t2;
+  }
+};
 
-template <typename T, typename Eval, int RC>
-__global__ void __launch_bounds__(kRowsMv)
+// B4, periodic: h^2 exp(-2 sin^2(u) / w^2) = h^2 base^(-g^2), u = d / 2p,
+// g = sin(u) a, a = 2 c / w
+template <typename T>
+struct PeriodicValue {
+  static constexpr int kVals = 1;
+  T i2p, a;
+  double scale[kVals];
+  __device__ explicit PeriodicValue(const T* th) {
+    const double h = th[0], w = th[1], p = th[2];
+    i2p = static_cast<T>(0.5 / p);
+    a = static_cast<T>(2.0 * sqrt(fold_c2<T>()) / w);
+    scale[0] = h * h;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T g = gp::dsin((xi - xj) * i2p) * a;
+    val[0] = neg_exp(g * g);
+  }
+};
+
+// B5, periodic: dK/dh = 2h E, dK/dw = h^2 E 4 sin^2(u) / w^3 =
+// h^2 / (c^2 w) E g^2, dK/dp = h^2 E d sin(2u) / (w^2 p^2) =
+// 2 h^2 / (w^2 p^2) E d sin(u) cos(u)
+template <typename T>
+struct PeriodicJac {
+  static constexpr int kVals = 3;
+  T i2p, a;
+  double scale[kVals];
+  __device__ explicit PeriodicJac(const T* th) {
+    const double h = th[0], w = th[1], p = th[2];
+    i2p = static_cast<T>(0.5 / p);
+    a = static_cast<T>(2.0 * sqrt(fold_c2<T>()) / w);
+    scale[0] = 2.0 * h;
+    scale[1] = h * h / (fold_c2<T>() * w);
+    scale[2] = 2.0 * h * h / (w * w * p * p);
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T d = xi - xj;
+    T sn, cs;
+    dsincos(d * i2p, &sn, &cs);
+    const T g = sn * a;
+    const T g2 = g * g;
+    const T E = neg_exp(g2);
+    val[0] = E;
+    val[1] = E * g2;
+    val[2] = E * (d * (sn * cs));
+  }
+};
+
+// -- the block shape ----------------------------------------------------------
+
+// RC, the right-hand sides a block holds: the smallest of 1, 4, 8, 9 that
+// covers r, else chunks of 16 (of 9 where P * 16 accumulators are too many)
+inline int chunk_for(int vals, int r) {
+  if (r == 1) return 1;
+  if (r <= 4) return 4;
+  if (r <= 8) return 8;
+  return (r == 9 || vals * 16 > kAccBudget) ? 9 : 16;
+}
+
+// ROWS, the rows a thread owns: what the accumulator budget allows, at most
+// kMaxRows / P (with more, ptxas spills B5's single-column instantiations)
+constexpr int rows_for(int vals, int rc) {
+  const int rows = kAccBudget / (vals * rc);
+  const int most = kMaxRows / vals;
+  return rows < 1 ? 1 : (rows > most ? most : rows);
+}
+
+// the column splits of a launch: about kBlocksPerSm blocks per SM, with at
+// least 4 tiles per split
+inline int splits_for(int vals, int n, int r, int sms) {
+  const int rc = chunk_for(vals, r);
+  const int per_block = kThreads * rows_for(vals, rc);
+  const long long blocks =
+      static_cast<long long>((n + per_block - 1) / per_block) * ((r + rc - 1) / rc);
+  const long long want = (static_cast<long long>(kBlocksPerSm) * sms + blocks - 1) / blocks;
+  const long long most = (n + 4 * kTile - 1) / (4 * kTile);
+  return static_cast<int>(std::max(1LL, std::min(want, most)));
+}
+
+// the row stride of a staged tile of V: RC padded to a whole 16-byte vector
+template <typename T, int RC>
+__host__ __device__ constexpr int padded_chunk() {
+  constexpr int v = vec_elems<T>();
+  return RC == 1 ? 1 : (RC + v - 1) / v * v;
+}
+
+// -- the product: out[z][p][i][c] = scale_p sum_{j in split z} val_p(i, j) V[j][c]
+
+template <typename T, typename Eval, int RC, int ROWS>
+__global__ void __launch_bounds__(kThreads)
 product_kernel(const T* __restrict__ x, const T* __restrict__ v,
-               const T* __restrict__ params, T* __restrict__ out, int n,
-               int dim, int r, int cols_per_split) {
+               const T* __restrict__ params, T* __restrict__ out, int n, int r,
+               int cols_per_split) {
   constexpr int kV = Eval::kVals;
-  __shared__ T xs[kTile * Eval::kDimCap];
-  __shared__ T vs[kTile * RC];
-  Eval ev(params, dim);
-  const int row = blockIdx.x * kRowsMv + threadIdx.x;
+  constexpr int RCP = padded_chunk<T, RC>();
+  __shared__ __align__(16) T xt[kTile];
+  __shared__ __align__(16) T vt[kTile * RCP];
+  const Eval ev(params);
+  const int row0 = blockIdx.x * (kThreads * ROWS) + threadIdx.x;
   const int c0 = blockIdx.y * RC;
   const int j_begin = blockIdx.z * cols_per_split;
   const int j_end = min(n, j_begin + cols_per_split);
-  ev.set_row(x, min(row, n - 1));  // rows past n compute and store nothing
 
-  double acc[kV][RC];
+  T xi[ROWS];  // rows past n compute with row n - 1 and store nothing
 #pragma unroll
-  for (int q = 0; q < kV; ++q) {
+  for (int q = 0; q < ROWS; ++q) xi[q] = x[min(row0 + q * kThreads, n - 1)];
+  double acc[ROWS][kV][RC];
 #pragma unroll
-    for (int c = 0; c < RC; ++c) acc[q][c] = 0.0;
+  for (int q = 0; q < ROWS; ++q) {
+#pragma unroll
+    for (int p = 0; p < kV; ++p) {
+#pragma unroll
+      for (int c = 0; c < RC; ++c) acc[q][p][c] = 0.0;
+    }
   }
+
   for (int jt = j_begin; jt < j_end; jt += kTile) {
     const int cnt = min(kTile, j_end - jt);
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < cnt * dim; e += kRowsMv) {
-      xs[e] = x[static_cast<size_t>(jt) * dim + e];
-    }
-    for (int e = threadIdx.x; e < kTile * RC; e += kRowsMv) {
-      const int jj = e / RC;
-      const int c = c0 + e % RC;
-      vs[e] = (jj < cnt && c < r) ? v[static_cast<size_t>(jt + jj) * r + c] : T(0);
+    // columns past cnt are staged as x = 0, V = 0 and add nothing
+    for (int e = threadIdx.x; e < kTile; e += kThreads) xt[e] = e < cnt ? x[jt + e] : T(0);
+    for (int e = threadIdx.x; e < kTile * RCP; e += kThreads) {
+      const int jj = e / RCP;
+      const int c = e % RCP;
+      vt[e] = (jj < cnt && c < RC && c0 + c < r)
+                  ? v[static_cast<size_t>(jt + jj) * r + c0 + c] : T(0);
     }
     __syncthreads();
-    T part[kV][RC];
+    T part[ROWS][kV][RC];
 #pragma unroll
-    for (int q = 0; q < kV; ++q) {
+    for (int q = 0; q < ROWS; ++q) {
 #pragma unroll
-      for (int c = 0; c < RC; ++c) part[q][c] = T(0);
+      for (int p = 0; p < kV; ++p) {
+#pragma unroll
+        for (int c = 0; c < RC; ++c) part[q][p][c] = T(0);
+      }
     }
-    for (int jj = 0; jj < cnt; ++jj) {
-      T vals[kV];
-      ev.eval(xs + jj * dim, vals);
+#pragma unroll 1
+    for (int j4 = 0; j4 < cnt; j4 += 4) {
+      T xj[4];
+      T v4[4];
+      ldv<4>(xt + j4, xj);
+      if constexpr (RC == 1) ldv<4>(vt + j4, v4);
 #pragma unroll
-      for (int q = 0; q < kV; ++q) {
+      for (int u = 0; u < 4; ++u) {
+        T vj[RCP];
+        if constexpr (RC == 1) {
+          vj[0] = v4[u];
+        } else {
+          ldv<RCP>(vt + (j4 + u) * RCP, vj);
+        }
 #pragma unroll
-        for (int c = 0; c < RC; ++c) part[q][c] = gp::dfma(vals[q], vs[jj * RC + c], part[q][c]);
+        for (int q = 0; q < ROWS; ++q) {
+          T val[kV];
+          ev.eval(xi[q], xj[u], val);
+#pragma unroll
+          for (int p = 0; p < kV; ++p) {
+#pragma unroll
+            for (int c = 0; c < RC; ++c) part[q][p][c] = gp::dfma(val[p], vj[c], part[q][p][c]);
+          }
+        }
       }
     }
 #pragma unroll
-    for (int q = 0; q < kV; ++q) {
+    for (int q = 0; q < ROWS; ++q) {
 #pragma unroll
-      for (int c = 0; c < RC; ++c) acc[q][c] += static_cast<double>(part[q][c]);
+      for (int p = 0; p < kV; ++p) {
+#pragma unroll
+        for (int c = 0; c < RC; ++c) acc[q][p][c] += static_cast<double>(part[q][p][c]);
+      }
     }
   }
-  if (row >= n) return;
   T* o = out + static_cast<size_t>(blockIdx.z) * kV * n * r;
 #pragma unroll
-  for (int q = 0; q < kV; ++q) {
+  for (int q = 0; q < ROWS; ++q) {
+    const int row = row0 + q * kThreads;
+    if (row >= n) break;
 #pragma unroll
-    for (int c = 0; c < RC; ++c) {
-      if (c0 + c < r) o[(static_cast<size_t>(q) * n + row) * r + c0 + c] = static_cast<T>(acc[q][c]);
+    for (int p = 0; p < kV; ++p) {
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        if (c0 + c < r) {
+          o[(static_cast<size_t>(p) * n + row) * r + c0 + c] =
+              static_cast<T>(acc[q][p][c] * ev.scale[p]);
+        }
+      }
     }
   }
 }
 
 template <typename T, typename Eval, int RC>
 int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
-                      int n, int dim, int r, int splits, cudaStream_t stream) {
+                      int n, int r, int splits, cudaStream_t stream) {
+  constexpr int ROWS = rows_for(Eval::kVals, RC);
   const int tiles = (n + kTile - 1) / kTile;
   const int tiles_per_split = (tiles + splits - 1) / splits;
   const int used = (tiles + tiles_per_split - 1) / tiles_per_split;
-  const dim3 grid((n + kRowsMv - 1) / kRowsMv, (r + RC - 1) / RC, used);
+  const dim3 grid((n + kThreads * ROWS - 1) / (kThreads * ROWS), (r + RC - 1) / RC, used);
   if (grid.y > kMaxGrid || grid.z > kMaxGrid) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  product_kernel<T, Eval, RC><<<grid, kRowsMv, 0, stream>>>(
-      x, v, params, used == 1 ? out : work, n, dim, r, tiles_per_split * kTile);
+  product_kernel<T, Eval, RC, ROWS><<<grid, kThreads, 0, stream>>>(
+      x, v, params, used == 1 ? out : work, n, r, tiles_per_split * kTile);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || used == 1) return static_cast<int>(err);
   return static_cast<int>(gp::launch_sum_splits<T>(
       work, out, static_cast<size_t>(Eval::kVals) * n * r, used, stream));
 }
 
-// RC, the columns of V a block holds: the smallest of 1, 4, 8, 16 that
-// covers r, else the largest in chunks.  B5 holds P values per column; with
-// P = 3 it stops at 8, which keeps its two accumulator sets in registers.
 template <typename T, typename Eval>
 int launch_product(const T* x, const T* v, const T* params, T* out, T* work,
-                   int n, int dim, int r, int splits, cudaStream_t stream) {
+                   int n, int r, int splits, cudaStream_t stream) {
   if (n <= 0 || r <= 0 || splits < 1 || (splits > 1 && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (r == 1) {
-    return launch_product_rc<T, Eval, 1>(x, v, params, out, work, n, dim, r, splits, stream);
-  }
-  if (r <= 4) {
-    return launch_product_rc<T, Eval, 4>(x, v, params, out, work, n, dim, r, splits, stream);
-  }
-  if constexpr (Eval::kVals > 2) {
-    return launch_product_rc<T, Eval, 8>(x, v, params, out, work, n, dim, r, splits, stream);
-  } else {
-    if (r <= 8) {
-      return launch_product_rc<T, Eval, 8>(x, v, params, out, work, n, dim, r, splits, stream);
-    }
-    return launch_product_rc<T, Eval, 16>(x, v, params, out, work, n, dim, r, splits, stream);
+  switch (chunk_for(Eval::kVals, r)) {
+    case 1:
+      return launch_product_rc<T, Eval, 1>(x, v, params, out, work, n, r, splits, stream);
+    case 4:
+      return launch_product_rc<T, Eval, 4>(x, v, params, out, work, n, r, splits, stream);
+    case 8:
+      return launch_product_rc<T, Eval, 8>(x, v, params, out, work, n, r, splits, stream);
+    case 9:
+      return launch_product_rc<T, Eval, 9>(x, v, params, out, work, n, r, splits, stream);
+    default:
+      if constexpr (Eval::kVals * 16 <= kAccBudget) {
+        return launch_product_rc<T, Eval, 16>(x, v, params, out, work, n, r, splits, stream);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
 int launch_matvec(const T* x, const T* v, const T* params, T* out, T* work,
-                  int n, int dim, int r, int family, int splits,
-                  cudaStream_t stream) {
+                  int n, int r, int family, int splits, cudaStream_t stream) {
   switch (family) {
     case gp::kSE:
-      if (dim != 1) break;
-      return launch_product<T, KEval<T, gp::SEForm<T>>>(x, v, params, out, work, n, dim,
-                                                        r, splits, stream);
+      return launch_product<T, SEValue<T>>(x, v, params, out, work, n, r, splits, stream);
     case gp::kPeriodic:
-      if (dim != 1) break;
-      return launch_product<T, KEval<T, gp::PeriodicForm<T>>>(x, v, params, out, work, n,
-                                                              dim, r, splits, stream);
+      return launch_product<T, PeriodicValue<T>>(x, v, params, out, work, n, r, splits,
+                                                 stream);
     default:
-      break;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -224,11 +391,9 @@ int launch_jacvec(const T* x, const T* u, const T* params, T* out, T* work,
                   int n, int r, int family, int splits, cudaStream_t stream) {
   switch (family) {
     case gp::kSE:
-      return launch_product<T, JacEval<T, gp::SEForm<T>>>(x, u, params, out, work, n, 1,
-                                                          r, splits, stream);
+      return launch_product<T, SEJac<T>>(x, u, params, out, work, n, r, splits, stream);
     case gp::kPeriodic:
-      return launch_product<T, JacEval<T, gp::PeriodicForm<T>>>(x, u, params, out, work,
-                                                                n, 1, r, splits, stream);
+      return launch_product<T, PeriodicJac<T>>(x, u, params, out, work, n, r, splits, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -293,18 +458,24 @@ extern "C" {
 
 // Each entry point returns cudaGetLastError() after its launches (0 =
 // success).  Pointers are device pointers.  `work` holds `splits` slabs of
-// the output (splits * P * n * r values) and may be null when splits == 1.
+// the output (splits * P * n * r values) and may be null when splits == 1;
+// gp_product_splits gives the splits of a B4 (vals = 1) or B5 (vals = P)
+// launch on a card of `sms` SMs.
+
+int gp_product_splits(int vals, int n, int r, int sms) {
+  return splits_for(vals, n, r, sms);
+}
 
 #define GP_PRODUCT_ENTRIES(SUFFIX, T)                                            \
   int gp_kernel_matvec_##SUFFIX(int device, const void* x, const void* v,        \
                                 const void* params, void* out, void* work,       \
-                                int n, int dim, int r, int family, int splits,   \
+                                int n, int r, int family, int splits,            \
                                 void* stream) {                                  \
     cudaError_t err = cudaSetDevice(device);                                     \
     if (err != cudaSuccess) return static_cast<int>(err);                        \
     return launch_matvec<T>(static_cast<const T*>(x), static_cast<const T*>(v),  \
                             static_cast<const T*>(params), static_cast<T*>(out), \
-                            static_cast<T*>(work), n, dim, r, family, splits,    \
+                            static_cast<T*>(work), n, r, family, splits,         \
                             static_cast<cudaStream_t>(stream));                  \
   }                                                                              \
   int gp_kernel_jacvec_##SUFFIX(int device, const void* x, const void* u,        \

@@ -12,7 +12,8 @@ without the CUDA toolkit.
 
 Every entry point takes the CUDA device index first and the stream last and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on any
-other value than 0.  Each wrapper counts its launches in ``launch_counts``.
+other value than 0 (``gp_product_splits`` launches nothing and returns a
+count).  Each wrapper counts its launches in ``launch_counts``.
 """
 
 from __future__ import annotations
@@ -50,10 +51,14 @@ _SIGNATURES = {
     ),
     "gp_chol_tile": (_I, _P, _P, _I, _I, _P),
     "gp_chol_tile_inv": (_I, _P, _P, _P, _I, _I, _P),
-    "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gp_kernel_jacvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gp_pairwise_ard": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gp_ard_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+#: entry points that do not depend on the element type and carry no suffix
+_PLAIN_SIGNATURES = {
+    "gp_product_splits": (_I, _I, _I, _I),
 }
 
 
@@ -120,11 +125,12 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+    named = [(name + suffix, argtypes) for name, argtypes in _SIGNATURES.items()
+             for suffix in ("_f32", "_f64")]
+    for name, argtypes in named + list(_PLAIN_SIGNATURES.items()):
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -20,13 +20,16 @@ it; for tensors on a CUDA card it launches the hand-written kernel of
   ``ard_prescale``; ``ard_matvec_prescaled_reference`` is its arithmetic in
   plain PyTorch.
 * ``kernel_jacvec_fused`` (B5) replaces ``_jacvec_tile_body``: the (P, n, r)
-  stack of dK/dtheta_p U with dK/dtheta never stored.
+  stack of dK/dtheta_p U with dK/dtheta never stored.  B4 and B5 fold every
+  constant out of the element; ``matvec_folded_reference`` and
+  ``jacvec_folded_reference`` are that arithmetic in plain PyTorch.
 
 B1, B2 and B6 are bound by the HBM write of their output (n * m elements per
 plane), B4 and B5 by the arithmetic of about n^2 closed-form evaluations;
 the sources note what the designs do about it.  The plain versions of B4 and
-B5 build strips of K (or dK/dtheta) with the plain builders and contract
-them with ``torch.matmul``, as the JAX package's strip scan does.  The
+B5 (``*_fused_reference``, the oracles and the CPU path) form strips of K
+(or dK/dtheta) with the plain pairwise functions and contract them with
+``torch.matmul``, as the JAX package's strip scan does.  The
 hyperparameters stay on the device as a small tensor the kernel reads
 through a pointer.  The kernels carry no autograd rule yet: a CUDA wrapper
 raises if an input requires grad.
@@ -348,14 +351,10 @@ def _sm_count(index: int) -> int:
 
 
 def _product_splits(n: int, r: int, device, vals: int) -> int:
-    """Column splits of a B4/B5 launch: enough blocks for about 8 per SM (a
-    block covers 128 rows and a chunk of at most 16 right-hand sides, 8 when
-    it holds more than 2 values per entry), with at least 4 tiles of 128
-    columns per split (csrc/matvec.cu)."""
-    chunk = 1 if r == 1 else 4 if r <= 4 else 8 if r <= 8 or vals > 2 else 16
-    blocks = -(-n // 128) * -(-r // chunk)
-    want = -(-8 * _sm_count(device.index) // blocks)
-    return max(1, min(want, -(-n // 512)))
+    """Column splits of a B4 (``vals`` = 1) or B5 (``vals`` = P) launch.  The
+    rule lives beside the kernel, with the chunk of right-hand sides a block
+    holds and the rows a thread owns (``splits_for``, csrc/matvec.cu)."""
+    return _build.library().gp_product_splits(vals, n, r, _sm_count(device.index))
 
 
 def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
@@ -373,25 +372,93 @@ def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
     splits = _product_splits(n, r, x.device, vals)
     work = (torch.empty(splits * vals * n * r, dtype=x.dtype, device=x.device)
             if splits > 1 else None)
-    common = (x.device.index, x.data_ptr(), v.data_ptr(), params.data_ptr(),
-              out.data_ptr(), None if work is None else work.data_ptr())
-    if jac:
-        status = _build.entry(name, x.dtype)(*common, n, r, _family(kernel), splits,
-                                             _build.stream_of(x))
-    else:  # the entry point keeps B4's input-dimension argument (always 1 here)
-        status = _build.entry(name, x.dtype)(*common, n, 1, r, _family(kernel), splits,
-                                             _build.stream_of(x))
+    status = _build.entry(name, x.dtype)(
+        x.device.index, x.data_ptr(), v.data_ptr(), params.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), n, r, _family(kernel), splits,
+        _build.stream_of(x),
+    )
     _build.check(status, name)
     _build.launch_counts["kernel_jacvec" if jac else "kernel_matvec"] += 1
     return out
 
 
+# B4, B5 and B4-ARD fold every constant out of the element: with
+# c^2 = log2(e) / 2 in float32 and 1 / 2 in float64, exp(-q / 2) is
+# exp2(-c^2 q) (one ex2 instruction) or exp(-c^2 q), and c / w scales the
+# difference (B4, B5: csrc/matvec.cu) or the coordinates (B4-ARD:
+# csrc/ard_matvec.cuh) once.
+_FOLD_C2 = {torch.float32: 0.5 * math.log2(math.e), torch.float64: 0.5}
+_ARD_SCALE = {dtype: math.sqrt(c2) for dtype, c2 in _FOLD_C2.items()}
+
+
+def folded_values(kernel, x1, x2, jac: bool = False):
+    """B4's (``jac`` false) or B5's arithmetic per element in plain PyTorch:
+    the unscaled (n, m) planes and the float64 constants that multiply each
+    plane's row sums, ``k = scale[0] * planes[0]`` and ``dK/dtheta_p =
+    scale[p] * planes[p]``.  SE: t = (x1_i - x2_j) s with s = c / w,
+    E = exp2(-t^2) in float32, exp(-t^2) in float64; planes E (and E t^2).
+    Periodic: g = sin((x1_i - x2_j) / 2p) 2 s; planes E (and E g^2,
+    E d sin u cos u).  The difference is taken first and then scaled:
+    pre-scaled coordinates lose float32 digits where |x| / w is large."""
+    x1, x2 = _vectors(x1, x2)
+    dtype = x1.dtype
+    c2 = _FOLD_C2[dtype]
+    neg_exp = torch.exp2 if dtype == torch.float32 else torch.exp
+    theta = kernel.params.to(device=x1.device, dtype=torch.float64)
+    h, w = theta[0], theta[1]
+    s = (math.sqrt(c2) / w).to(dtype)
+    d = pairwise_diff(x1, x2)
+    fam = _family(kernel)
+    if fam == 0:
+        t2 = torch.square(d * s)
+        E = neg_exp(-t2)
+        if not jac:
+            return [E], [h * h]
+        return [E, E * t2], [2.0 * h, h * h / (c2 * w)]
+    if fam != 1:
+        raise TypeError(f"no folded form for {type(kernel).__name__}")
+    p = theta[2]
+    u = d * (0.5 / p).to(dtype)
+    sn = torch.sin(u)
+    g2 = torch.square(sn * (2.0 * s))
+    E = neg_exp(-g2)
+    if not jac:
+        return [E], [h * h]
+    return ([E, E * g2, E * (d * (sn * torch.cos(u)))],
+            [2.0 * h, h * h / (c2 * w), 2.0 * h * h / (w * w * p * p)])
+
+
+def _folded_product(kernel, x, v, jac: bool, block_size: int) -> torch.Tensor:
+    """(P, n, r) row sums of ``folded_values``' planes times v, each scaled
+    once in float64, as the kernels scale their double row sums."""
+    out = None
+    for j in range(0, x.shape[0], block_size):
+        planes, scale = folded_values(kernel, x, x[j:j + block_size], jac)
+        part = torch.stack([plane @ v[j:j + block_size] for plane in planes])
+        out = part if out is None else out + part
+    scale = torch.stack(scale)[:, None, None]
+    return (out.double() * scale).to(x.dtype)
+
+
+def matvec_folded_reference(kernel, x, v, block_size=1024) -> torch.Tensor:
+    """K(x, x) V with B4's arithmetic (``folded_values``), without the noise
+    term, for SE and periodic kernels over 1-D x."""
+    x = torch.as_tensor(x)
+    v2, squeeze = _rhs(x, v)
+    out = _folded_product(kernel, x, v2, False, block_size)[0]
+    return out[:, 0] if squeeze else out
+
+
+def jacvec_folded_reference(kernel, x, u, block_size=1024) -> torch.Tensor:
+    """The (P, n, r) stack of dK/dtheta_p U with B5's arithmetic."""
+    x = torch.as_tensor(x)
+    u2, _ = _rhs(x, u)
+    return _folded_product(kernel, x, u2, True, block_size)
+
+
 # B4-ARD takes coordinates pre-scaled by c / w_d, so that a dimension costs a
 # subtract and an FMA and k = h^2 exp2(-sq) (float32) or h^2 exp(-sq)
-# (float64): c^2 = log2(e) / 2 folds the -1/2 and the base change into the
-# coordinates (csrc/ard_matvec.cuh).
-_ARD_SCALE = {torch.float32: math.sqrt(0.5 * math.log2(math.e)),
-              torch.float64: math.sqrt(0.5)}
+# (float64) (csrc/ard_matvec.cuh).
 #: blocks per SM that the column splits of a B4-ARD launch aim for
 _ARD_BLOCKS_PER_SM = 16
 

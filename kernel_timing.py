@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels B3 and B4-ARD, the paths over them, and the other kernels on
-one CUDA card, so that two trees of gaussian_processes_tpu_torch can be
-compared in one run.
+"""Time the kernels and the paths over them on one CUDA card, so that two
+trees of gaussian_processes_tpu_torch can be compared in one run.
 
-    python3 kernel_timing.py [--root DIR] [--profile DIR]
+    python3 kernel_timing.py [--root DIR] [--profile DIR] [--ptxas SOURCE]
 
 ``--root`` imports ``gaussian_processes_tpu_torch`` from DIR (default: this
 checkout).  To compare a parent commit with this one, unpack the parent into
@@ -14,9 +13,12 @@ device times in ms by CUDA events around back-to-back launches queued
 behind a spin kernel, path walls in s by the host clock around a
 synchronized call.  The script prints the card's name and power limit and
 one JSON line.  ``--profile DIR`` also writes a ``torch.profiler`` breakdown
-by kernel of one warm ARD ``fit_iterative`` at N=65536 and of one exact fit
-at N=16384 to DIR/profile.json and prints its summary.  Needs a CUDA card;
-exits 1 without one.
+by kernel of one warm SE and one warm ARD ``fit_iterative`` at N=65536, of
+one SE value+grad there and of one exact fit at N=16384 to DIR/profile.json
+and prints its summary.  ``--ptxas SOURCE`` (a file name under the package's
+csrc/, as matvec.cu) compiles that source with ``-Xptxas -v`` and prints
+each kernel's registers, spills and stack, and does nothing else.  Needs a
+CUDA card (``--ptxas``: only nvcc); exits 1 without one.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ import argparse
 import collections
 import json
 import os
+import re
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -43,6 +48,10 @@ def wall_s(fn) -> float:
 
 
 def measure(dev) -> dict:
+    return {**measure_exact_and_ard(dev), **measure_products(dev)}
+
+
+def measure_exact_and_ard(dev) -> dict:
     import dataclasses
 
     import torch
@@ -96,19 +105,43 @@ def measure(dev) -> dict:
     out[f"B6_{cs.K_N}_ms"] = cs.time_ms(lambda: pw.pairwise_matrix_ard(
         ka, xa16, xa16, noise=noise, jitter=cs.ITER_JITTER), 10)
 
-    # the SE products
-    xs, _, ks = cs.sine_problem(cs.ITER_N, dev)
-    for r in (1, 8):
-        v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
-        out[f"B4_SE_r{r}_ms"] = cs.time_ms(
-            lambda: pw.kernel_matvec_fused(ks, xs, v, noise, cs.ITER_JITTER), 10)
+    # B6 at the pivot-column shape of krylov.pivoted_cholesky
+    piv = xa[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
+    out[f"B6_pivot_column_{cs.ITER_N}_ms"] = cs.time_ms(
+        lambda: pw.pairwise_matrix_ard(ka, xa, piv), 200)
+    return out
+
+
+def measure_products(dev) -> dict:
+    """The SE and periodic products (B4, B5) and the SE paths over them."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    out = {}
+    gen = torch.Generator().manual_seed(1)
+    noise = torch.tensor(cs.ITER_NOISE, dtype=torch.float32, device=dev)
+    xs, ys, ks = cs.sine_problem(cs.ITER_N, dev)
+    kp = gpx.PeriodicKernel(1.0, 1.0, 0.5, dtype=torch.float32, device=dev)
     u = torch.randn(cs.ITER_N, 9, generator=gen).to(dev)
-    out["B5_r9_ms"] = cs.time_ms(lambda: pw.kernel_jacvec_fused(ks, xs, u), 5)
+    for name, kern, rs in (("SE", ks, (1, 8, 9, 64)), ("periodic", kp, (1, 8))):
+        for r in rs:
+            v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
+            out[f"B4_{name}_r{r}_ms"] = cs.time_ms(
+                lambda: pw.kernel_matvec_fused(kern, xs, v, noise, cs.ITER_JITTER), 10)
+        out[f"B5_{name}_r9_ms"] = cs.time_ms(lambda: pw.kernel_jacvec_fused(kern, xs, u), 5)
+    for key in ("se_fit_iterative_wall_s", "se_fit_iterative_warm_wall_s"):
+        out[key] = wall_s(lambda: gpx.fit_iterative(ks, xs, ys, cs.ITER_NOISE, cs.seed(10),
+                                                    **cs.ITER_OPTS))
+    for key in ("se_value_and_grad_wall_s", "se_value_and_grad_warm_wall_s"):
+        out[key] = wall_s(lambda: gpx.log_marginal_value_and_grad_iterative(
+            ks, xs, ys, cs.ITER_NOISE, cs.seed(11), **cs.ITER_OPTS))
     return out
 
 
 def profile(dev, out_dir: str) -> dict:
-    """Device time by kernel of one warm ARD fit and one exact fit at K_N."""
+    """Device time by kernel of one warm SE fit, SE value+grad and ARD fit
+    at ITER_N and of one exact fit at K_N."""
     import dataclasses
 
     import torch
@@ -116,11 +149,16 @@ def profile(dev, out_dir: str) -> dict:
     from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
 
     xa, ya, ka = cs.ard_problem(cs.ITER_N, dev)
+    xs, ys, ks = cs.sine_problem(cs.ITER_N, dev)
     cfg1 = CONFIGS["config1_fit_se500"]
     x, y, _ = (torch.as_tensor(a, device=dev)
                for a in make_data(dataclasses.replace(cfg1.data, n=cs.K_N), "float32"))
     k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
     runs = {
+        f"se_fit_iterative_{cs.ITER_N}": lambda: gpx.fit_iterative(
+            ks, xs, ys, cs.ITER_NOISE, cs.seed(10), **cs.ITER_OPTS),
+        f"se_value_and_grad_{cs.ITER_N}": lambda: gpx.log_marginal_value_and_grad_iterative(
+            ks, xs, ys, cs.ITER_NOISE, cs.seed(11), **cs.ITER_OPTS),
         f"ard_fit_iterative_{cs.ITER_N}": lambda: gpx.fit_iterative(
             ka, xa, ya, cs.ITER_NOISE, cs.seed(12), **cs.ITER_OPTS),
         f"exact_fit_{cs.K_N}": lambda: gpx.fit(k, x, y, cfg1.fit.noise, cfg1.fit.jitter),
@@ -149,12 +187,44 @@ def profile(dev, out_dir: str) -> dict:
             for name, r in result.items()}
 
 
+def ptxas(source: str) -> int:
+    """Compile one kernel source with ``-Xptxas -v`` and print, per kernel,
+    its registers, spill bytes and stack frame."""
+    from gaussian_processes_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC),
+               "-c", "-o", str(Path(tmp) / "out.o"), str(_build.CSRC / source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr, file=sys.stderr)
+        return 1
+    filt = subprocess.run(["cu++filt"], input=proc.stderr, capture_output=True, text=True)
+    text = filt.stdout if filt.returncode == 0 else proc.stderr
+    kernels = re.findall(
+        r"Compiling entry function '(.*?)' for 'sm_90a'.*?(\d+) bytes stack frame, "
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+        text, flags=re.S)
+    for name, stack, stores, loads, regs in kernels:
+        name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)|^void ", "", name)
+        print(json.dumps({"kernel": name.split(">(")[0] + ">", "registers": int(regs),
+                          "spill_stores": int(stores), "spill_loads": int(loads),
+                          "stack": int(stack)}))
+    print(json.dumps({"source": source, "kernels": len(kernels), "compile_s": seconds}))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--profile", default=None, metavar="DIR")
+    parser.add_argument("--ptxas", default=None, metavar="SOURCE")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))  # ahead of this file's directory
+    if args.ptxas:
+        return ptxas(args.ptxas)
 
     import torch
 

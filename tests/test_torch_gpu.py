@@ -234,15 +234,38 @@ def test_ard_matvec_kernel_over_dims(cuda, D, n, r, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", [1, 8, 9, 64, 300])
+@pytest.mark.parametrize("n", [129, 777, 1000])
 @pytest.mark.parametrize("family", list(KERNELS))
-def test_jacvec_kernel_matches_plain(cuda, family, dtype):
-    k, x = KERNELS[family](dtype, cuda), _x(777, 7, dtype, cuda)
-    g = torch.Generator().manual_seed(8)
-    u = torch.randn(777, 9, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+def test_jacvec_kernel_matches_plain(cuda, family, n, r, dtype):
+    """B5 (one instantiation per chunk of right-hand sides) against the plain
+    product, and a repeat that must be bit-identical."""
+    k, x = KERNELS[family](dtype, cuda), _x(n, 7, dtype, cuda)
+    g = torch.Generator().manual_seed(8 + n + r)
+    u = torch.randn(n, r, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+    before = _build.launch_counts["kernel_jacvec"]
     got = tpw.kernel_jacvec_fused(k, x, u)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["kernel_jacvec"] == before + 1
     want = tpw.kernel_jacvec_fused_reference(k, x, u)
     J = tpw.pairwise_jacobian_reference(k, x, x)
     _within_row_sums(got, want, J.abs() @ u.abs(), dtype)
+    assert torch.equal(got, tpw.kernel_jacvec_fused(k, x, u))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", list(KERNELS))
+def test_products_match_their_folded_arithmetic(cuda, family, dtype):
+    """B4 and B5 against the plain versions of their own arithmetic."""
+    k, x = KERNELS[family](dtype, cuda), _x(777, 9, dtype, cuda)
+    g = torch.Generator().manual_seed(10)
+    u = torch.randn(777, 9, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+    K_abs = tpw.pairwise_matrix_reference(k, x, x).abs()
+    _within_row_sums(tpw.kernel_matvec_fused(k, x, u, 0.0), tpw.matvec_folded_reference(k, x, u),
+                     K_abs @ u.abs(), dtype)
+    J_abs = tpw.pairwise_jacobian_reference(k, x, x).abs()
+    _within_row_sums(tpw.kernel_jacvec_fused(k, x, u), tpw.jacvec_folded_reference(k, x, u),
+                     J_abs @ u.abs(), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -141,7 +141,8 @@ def test_float32_twin_keeps_dtype():
 def test_build_sources_and_hash():
     names = [p.name for p in _build.sources()]
     assert names == ["ard_matvec_f32.cu", "ard_matvec_f64.cu", "chol_tile.cu", "matvec.cu",
-                     "pairwise.cu", "ard_matvec.cuh", "closed_forms.cuh", "splits.cuh"]
+                     "pairwise.cu", "ard_matvec.cuh", "closed_forms.cuh", "product_common.cuh",
+                     "splits.cuh"]
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     flags = " ".join(_build.NVCC_FLAGS)
