@@ -8,12 +8,15 @@
 3. Holds each kernel against its plain PyTorch version on the card, at small
    shapes (SE, periodic and ARD, square and rectangular, sizes that are not
    tile multiples, with and without the diagonal, 1 to 300 right-hand sides,
-   B4-ARD over D = 1..16 and B5 over n and r with bit-identical repeats, B3
-   with and without its inverse over a batch of 64
+   B2b's every one-plane form, B4-ARD over D = 1..16 and B5 over n and r
+   with bit-identical repeats, B6 over D = 1, 3, 8, 16 at ragged, pivot-row,
+   pivot-column and few-row shapes with K(x, x) bitwise symmetric and its
+   diagonal exact, B3 with and without its inverse over a batch of 64
    tiles with non-PD and NaN ones, float32 and float64) and at the shapes of
-   the main paths, where it also times both with CUDA events, times the
-   PyTorch calls for the same function where there are any
-   (``torch.linalg.cholesky_ex`` for B3's factor, followed by
+   the main paths (B1 and B6 also at the pivoted Cholesky's pivot row and
+   column, B2b at each SE plane), where it also times both with CUDA
+   events, times the PyTorch calls for the same function where there are
+   any (``torch.linalg.cholesky_ex`` for B3's factor, followed by
    ``solve_triangular`` for its inverse) and computes each kernel's bound.
 4. Drives the main paths, each with the launch counters reset just before
    it and read just after: the exact-GP path
@@ -148,16 +151,17 @@ KERNEL_ROWS = [
      "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
      "gaussian_processes_tpu/ops/blocked_cholesky.py:83"),
     ("B4 fused kernel matvec", "kernel_matvec", "kernel_matvec",
-     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:363"),
+     "gaussian_processes_tpu_torch/csrc/matvec.cuh", "gaussian_processes_tpu/ops/pairwise.py:363"),
     ("B4-ARD fused ARD matvec", "kernel_matvec_ard", "kernel_matvec_ard",
      "gaussian_processes_tpu_torch/csrc/ard_matvec.cuh",
      "gaussian_processes_tpu/ops/pairwise.py:398"),
     ("B5 fused Jacobian product", "kernel_jacvec", "kernel_jacvec",
-     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:528"),
+     "gaussian_processes_tpu_torch/csrc/matvec.cuh", "gaussian_processes_tpu/ops/pairwise.py:528"),
     ("B6 ARD pairwise K", "pairwise_ard", "pairwise_ard",
-     "gaussian_processes_tpu_torch/csrc/matvec.cu", "gaussian_processes_tpu/ops/pairwise.py:188"),
+     "gaussian_processes_tpu_torch/csrc/ard_pairwise.cu",
+     "gaussian_processes_tpu/ops/pairwise.py:188"),
 ]
-# the launch counters each main path must move: B1 builds the pivot columns
+# the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD fit
 PATH_KERNELS = {
     "exact": ("pairwise_k", "pairwise_jac", "pairwise_hess", "chol_tile"),
@@ -320,9 +324,15 @@ def check_kernels_small(check, dev):
                 _, v = plane_violation(pw.pairwise_hessian(k, x1, x2),
                                        pw.pairwise_hessian_reference(k, x1, x2), dname)
                 check(f"B2b {tag}", v, 1.0)
-                _, v = plane_violation(pw.pairwise_hessian(k, x1, x2, pair=(1, 0)),
-                                       pw.pairwise_hessian_reference(k, x1, x2, pair=(1, 0)), dname)
-                check(f"B2b pair {tag}", v, 1.0)
+                # each one-plane instantiation, the pair in both orders
+                worst = 0.0
+                for p in range(k.n_params):
+                    for q in range(k.n_params):
+                        got = pw.pairwise_hessian(k, x1, x2, pair=(p, q))
+                        for want in (pw.pairwise_hessian_reference(k, x1, x2, pair=(p, q)),
+                                     pw.hessian_plane_folded(k, x1, x2, (p, q))):
+                            worst = max(worst, plane_violation(got, want, dname)[1])
+                check(f"B2b each plane {tag}", worst, 1.0)
         # B3 on SPD kernel tiles (the diagonal tiles of a config-1 matrix)
         x = torch.sort(torch.rand(512, generator=gen, dtype=torch.float64) * 6 - 3)[0].to(dev)
         K = pw.pairwise_matrix_reference(GaussianKernel(1.0, 1.0, dtype=torch.float64, device=dev),
@@ -432,6 +442,13 @@ def check_kernels_at_slice(check, dev) -> dict:
     check(f"B2b {GRAD_N}x{GRAD_N} pair",
           record("pairwise_hess", kern(), plain(), kern, plain, 10,
                  (SE_HESS_PLANE_OPS * g2, 4 * (2 * GRAD_N + g2))), 1.0)
+    # the chunked Hessian's other two SE planes, (h, h) and (w, w)
+    for p in (0, 1):
+        kern = lambda: pw.pairwise_hessian(k, x4, x4, pair=(p, p))  # noqa: E731
+        plain = lambda: pw.pairwise_hessian_reference(k, x4, x4, pair=(p, p))  # noqa: E731
+        check(f"B2b {GRAD_N}x{GRAD_N} pair ({p}, {p})",
+              record(f"pairwise_hess_{p}{p}", kern(), plain(), kern, plain, 10,
+                     (SE_HESS_PLANE_OPS * g2, 4 * (2 * GRAD_N + g2))), 1.0)
     kern = lambda: pw.pairwise_hessian(k, x4, x4)  # noqa: E731
     plain = lambda: pw.pairwise_hessian_reference(k, x4, x4)  # noqa: E731
     check(f"B2b {GRAD_N}x{GRAD_N} all planes",
@@ -492,7 +509,7 @@ def check_kernels_at_slice(check, dev) -> dict:
 
 
 def check_products_small(check, dev):
-    """Phase 3a, matrix-free kernels: B4 (SE, periodic, ARD D=3), B5 and B6
+    """Phase 3a, matrix-free kernels: B4 (SE, periodic, ARD D=3) and B5
     against their plain versions at small shapes, float32 and float64."""
     import torch
     from gaussian_processes_tpu_torch import ARDGaussianKernel, GaussianKernel, PeriodicKernel
@@ -530,15 +547,52 @@ def check_products_small(check, dev):
                                                 pw.kernel_jacvec_fused_reference(k, x, u),
                                                 bound, dname)
                     check(f"B5 {fam} n={n} r=9 {dname}", viol, 1.0)
-        k = kernels["ard"]
-        x1, x2 = rand(777, 3).to(dev, dtype), rand(1234, 3).to(dev, dtype)
-        _, v = plane_violation(pw.pairwise_matrix_ard(k, x1, x2),
-                               pw.pairwise_matrix_ard_reference(k, x1, x2), dname)
-        check(f"B6 777x1234 D=3 {dname}", v, 1.0)
-        _, v = plane_violation(pw.pairwise_matrix_ard(k, x1, x2, noise=0.1, jitter=1e-6),
-                               pw.pairwise_matrix_ard_reference(k, x1, x2, noise=0.1, jitter=1e-6),
-                               dname)
-        check(f"B6+diag 777x1234 D=3 {dname}", v, 1.0)
+
+
+# B6's shapes: ragged tiles, the pivot column and row of the pivoted Cholesky
+# at the matrix-free N, and a few rows against many columns
+ARD_SHAPES = ((777, 1234), (65536, 1), (1, 65536), (3, 5000))
+
+
+def check_ard_pairwise_small(check, dev):
+    """B6 against the plain version of its arithmetic and the plain ARD K
+    over D = 1, 3, 8, 16 and ARD_SHAPES, with and without the diagonal,
+    float32 and float64 (one check per (dtype, D) holds the largest
+    violation of its 16 comparisons); K(x, x) bitwise symmetric with its
+    diagonal exactly h^2 + noise^2 + jitter, in both layouts."""
+    import torch
+    from gaussian_processes_tpu_torch import ARDGaussianKernel
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("B6 vs plain over D and shapes:", flush=True)
+    gen = torch.Generator().manual_seed(5)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for D in (1, 3, 8, 16):
+            k = ARDGaussianKernel(1.1, torch.linspace(0.6, 2.4, D, dtype=torch.float64),
+                                  dtype=dtype, device=dev)
+            worst = 0.0
+            for n, m in ARD_SHAPES:
+                x1 = (torch.rand(n, D, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+                x2 = (torch.rand(m, D, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+                for diag in ({}, dict(noise=0.1, jitter=1e-6)):
+                    got = pw.pairwise_matrix_ard(k, x1, x2, **diag)
+                    d = pw._diag_term(0.1, 1e-6, x1) if diag else None
+                    own = pw.pairwise_ard_prescaled_reference(
+                        k.h, pw.ard_prescale(k, x1), pw.ard_prescale(k, x2), diag=d)
+                    for want in (own, pw.pairwise_matrix_ard_reference(k, x1, x2, **diag)):
+                        worst = max(worst, plane_violation(got, want, dname)[1])
+            check(f"B6 D={D} {dname}, 4 shapes with and without the diagonal", worst, 1.0)
+            exact = True
+            h2 = k.h.to(dtype) * k.h.to(dtype)
+            for n in (100, 777):  # the flat layout, then the tile
+                x = (torch.rand(n, D, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+                for diag in ({}, dict(noise=0.2, jitter=1e-6)):
+                    K = pw.pairwise_matrix_ard(k, x, x, **diag)
+                    want = h2 + pw._diag_term(0.2, 1e-6, x) if diag else h2
+                    exact &= torch.equal(K, K.T) and torch.equal(K.diagonal(), want.expand(n))
+            check(f"B6 D={D} {dname} K(x, x) symmetric, diagonal exact (0 = yes)",
+                  0.0 if exact else 1.0, 0.0)
 
 
 def check_ard_products_small(check, dev):
@@ -629,6 +683,14 @@ def check_products_at_slice(check, dev, rows):
         check(label, viol, 1.0)
         torch.cuda.empty_cache()
 
+    def pivot_row(key, label, kern, plain, work):
+        err, viol = plane_violation(kern(), plain(), "float32")
+        rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
+                     "library_ms": None, **bound(*work)}
+        print(f"  {label}: kernel {rows[key]['ms']:.5f} ms, plain {rows[key]['plain_ms']:.5f} ms, "
+              f"bound {rows[key]['bound_ms']:.2e} ms, max_abs_err {err:.3e}", flush=True)
+        check(label, viol, 1.0)
+
     def matvec_rows(kernel, xk, label, k_ops, sfu_per_elem, keys, dim=1, iters=(5, 2)):
         for r, key in keys:
             v = torch.randn(ITER_N, r, generator=gen).to(dev)
@@ -663,6 +725,14 @@ def check_products_at_slice(check, dev, rows):
         rows[f"strip_matvec_r{r}"] = {"ms": time_ms(strip, 3)}
         print(f"  kernel_matvec(impl='strip') N={ITER_N} r={r}: "
               f"{rows[f'strip_matvec_r{r}']['ms']:.4f} ms", flush=True)
+    # B1 at the pivoted Cholesky's shapes: the column K(x, x[piv]) it built
+    # before, the row K(x[piv], x) it builds now
+    piv_se = x[ITER_N // 3:ITER_N // 3 + 1].contiguous()
+    for key, a, b in (("pairwise_k_pivot_column", x, piv_se), ("pairwise_k_pivot_row", piv_se, x)):
+        pivot_row(key, f"B1 pivot {key.split('_')[-1]} {a.shape[0]}x{b.shape[0]}",
+                  lambda: pw.pairwise_matrix(k, a, b),
+                  lambda: pw.pairwise_matrix_reference(k, a, b),
+                  (SE_K_OPS * ITER_N, 4 * (1 + 2 * ITER_N)))
     # SE's dK/dh and dK/dw are >= 0, so the plain product with |U| is the bound
     jacvec_row(k, "kernel_jacvec", "B5 SE", SE_JAC_OPS, 1,
                lambda u: pw.kernel_jacvec_fused_reference(k, x, u.abs()))
@@ -697,20 +767,14 @@ def check_products_at_slice(check, dev, rows):
     print(f"  B6 {K_N}^2 D={ARD_DIM}+diag: kernel {rows['pairwise_ard']['ms']:.4f} ms, plain "
           f"{rows['pairwise_ard']['plain_ms']:.4f} ms, max_abs_err {err:.3e}", flush=True)
     check(f"B6 {K_N}x{K_N} D={ARD_DIM}+diag", viol, 1.0)
-    # one pivot column, as krylov.pivoted_cholesky builds it once per rank
-    # step: K(x, x[piv]), (ITER_N, 1)
+    # the pivoted Cholesky's shapes: the column K(x, x[piv]) it built
+    # before, the row K(x[piv], x) it builds now, once per rank step
     piv = xa[ITER_N // 3:ITER_N // 3 + 1].contiguous()
-    kern = lambda: pw.pairwise_matrix_ard(ka, xa, piv)  # noqa: E731
-    plain = lambda: pw.pairwise_matrix_ard_reference(ka, xa, piv)  # noqa: E731
-    err, viol = plane_violation(kern(), plain(), "float32")
-    rows["pairwise_ard_pivot_column"] = {
-        "max_abs_err": err, "ms": time_ms(kern, 200), "plain_ms": time_ms(plain, 50),
-        **bound(ard_ops(ARD_DIM) * ITER_N, 4 * (ITER_N * ARD_DIM + ARD_DIM + ITER_N))}
-    print(f"  B6 pivot column {ITER_N}x1 D={ARD_DIM}: kernel "
-          f"{rows['pairwise_ard_pivot_column']['ms']:.5f} ms, plain "
-          f"{rows['pairwise_ard_pivot_column']['plain_ms']:.5f} ms, bound "
-          f"{rows['pairwise_ard_pivot_column']['bound_ms']:.2e} ms", flush=True)
-    check(f"B6 pivot column {ITER_N}x1 D={ARD_DIM}", viol, 1.0)
+    for key, a, b in (("pairwise_ard_pivot_column", xa, piv), ("pairwise_ard_pivot_row", piv, xa)):
+        pivot_row(key, f"B6 pivot {key.split('_')[-1]} {a.shape[0]}x{b.shape[0]} D={ARD_DIM}",
+                  lambda: pw.pairwise_matrix_ard(ka, a, b),
+                  lambda: pw.pairwise_matrix_ard_reference(ka, a, b),
+                  (ard_ops(ARD_DIM) * ITER_N, 4 * (ITER_N * ARD_DIM + ARD_DIM + ITER_N)))
     torch.cuda.empty_cache()
 
 
@@ -1011,6 +1075,7 @@ def main() -> int:
     check_products_small(check, dev)
     check_ard_products_small(check, dev)
     check_jac_products_small(check, dev)
+    check_ard_pairwise_small(check, dev)
     slice_rows = check_kernels_at_slice(check, dev)
     check_products_at_slice(check, dev, slice_rows)
 
@@ -1055,7 +1120,9 @@ def main() -> int:
             "chol_tile", "chol_tile_batch64", "kernel_matvec_r8", "kernel_matvec_r9",
             "kernel_matvec_r64",
             "kernel_matvec_periodic", "kernel_matvec_periodic_r8", "kernel_jacvec_periodic",
-            "kernel_matvec_ard_r1", "kernel_matvec_ard_r64", "pairwise_ard_pivot_column")},
+            "kernel_matvec_ard_r1", "kernel_matvec_ard_r64", "pairwise_ard_pivot_column",
+            "pairwise_ard_pivot_row", "pairwise_k_pivot_column", "pairwise_k_pivot_row",
+            "pairwise_hess_00", "pairwise_hess_11")},
         "sfu_floor_ms": {row: slice_rows[row]["sfu_floor_ms"] for _, _, row, _, _ in KERNEL_ROWS
                          if "sfu_floor_ms" in slice_rows[row]},
         "launches_by_path": launches_by_path,

@@ -24,7 +24,7 @@
 //   independent exp/FMA chains hide each other's latency.
 //
 // What keeps the product correct and repeatable is the same as B4's
-// (matvec.cu): a tile's kTile products are summed in T and the tile sums in
+// (matvec.cuh): a tile's kTile products are summed in T and the tile sums in
 // double -- summed in float32 alone, the ~2e4 terms of a row of the
 // N = 65536 ARD workload lose ~3e-4 of ||y|| (a float32 sequential sum
 // measured on the CPU at N = 8192 lost 1.4e-4), which the f64 residual check
@@ -52,14 +52,6 @@ constexpr int kThreads = 128;  // threads per block
 constexpr int kTile = 128;     // columns per shared-memory tile
 constexpr int kMaxDim = 16;
 constexpr int kMaxGrid = 65535;  // grid axes y and z
-
-// the row stride of a staged coordinate tile: D padded to a whole vector
-// (or to 2 in float32 for D = 2), so each column's coordinates are aligned
-template <typename T, int D>
-__host__ __device__ constexpr int padded_dim() {
-  constexpr int v = vec_elems<T>();
-  return D == 1 ? 1 : (D == 2 ? 2 : (D + v - 1) / v * v);
-}
 
 // out[z][i][c0 + c] = sum_{j in split z} k(i, j) V[j][c0 + c]
 template <typename T, int D, int RC, int ROWS>

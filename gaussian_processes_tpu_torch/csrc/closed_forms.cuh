@@ -1,14 +1,18 @@
 // Closed-form kernel values and hyperparameter derivatives of the pairwise
-// kernels (B1, B2a, B2b, B6).  The matrix-free products (B4, B5: matvec.cu)
+// kernels (B1, B2a, B2b).  The matrix-free products (B4, B5: matvec.cuh)
 // evaluate the same functions with every constant folded out of the element.
 //
-// Each form mirrors, expression for expression, the static k_fn / jac_fn /
-// hess_fn of its Python class (models/gaussian.py, models/periodic.py), so
-// the kernels and their plain PyTorch twins evaluate the same arithmetic.
-// Matern 3/2 and 5/2, RQ and Sum/Product trees extend the Family switch when
-// their modules are ported.  The D-dimensional ARD-SE kernel
-// (models/ard.py) is not a case of the switch: B6 (matvec.cu) evaluates it
-// through ard_k below, B4-ARD (ard_matvec.cuh) in its own pre-scaled form.
+// Each form's k / jac / hess mirrors, expression for expression, the static
+// k_fn / jac_fn / hess_fn of its Python class (models/gaussian.py,
+// models/periodic.py), so the kernels and their plain PyTorch twins
+// evaluate the same arithmetic.  HessValue<V> is one value of hess, the
+// upper-triangle entry V, with every factor that does not depend on the
+// element folded into constants once per launch; its plain PyTorch version
+// is ops/pairwise.py::hessian_plane_folded.  Matern 3/2 and 5/2, RQ and
+// Sum/Product trees extend the Family switch when their modules are ported.
+// The D-dimensional ARD-SE kernel (models/ard.py) is not a case of the
+// switch: B6 (ard_pairwise.cu) and B4-ARD (ard_matvec.cuh) evaluate it on
+// pre-scaled coordinates.
 //
 // Compiled without --use_fast_math: sin and exp are the accurate libm forms,
 // never __sinf / __expf.
@@ -60,6 +64,33 @@ struct SEForm {
     out[1] = T(2) * h * E * d2 * iw3;
     out[2] = (h * h) * E * (d2 * d2 * iw3 * iw3 - T(3) * d2 * iw2 * iw2);
   }
+
+  // E = exp(a d^2), a = -1 / (2 w^2).  V = 0 (h,h): 2 E; V = 1 (h,w):
+  // c1 d^2 E, c1 = 2h / w^3; V = 2 (w,w): d^2 E (c1 d^2 + c2), c1 = h^2 / w^6,
+  // c2 = -3 h^2 / w^4
+  template <int V>
+  struct HessValue {
+    static_assert(V >= 0 && V < 3, "SE's Hessian has three upper-triangle values");
+    T a, c1, c2;
+    __device__ explicit HessValue(const T* th) {
+      const T h = th[0], w = th[1];
+      const T iw2 = T(1) / (w * w);
+      a = T(-0.5) * iw2;
+      c1 = V == 0 ? T(2) : (V == 1 ? T(2) * h * iw2 / w : (h * h) * (iw2 * iw2 * iw2));
+      c2 = T(-3) * (h * h) * (iw2 * iw2);
+    }
+    __device__ __forceinline__ T operator()(T d) const {
+      const T d2 = d * d;
+      const T E = dexp(a * d2);
+      if constexpr (V == 0) {
+        return c1 * E;
+      } else if constexpr (V == 1) {
+        return c1 * (d2 * E);
+      } else {
+        return (d2 * E) * dfma(c1, d2, c2);
+      }
+    }
+  };
 };
 
 // Periodic, theta = (h, w, p):  h^2 exp(-2 sin^2(d / (2p)) / w^2).
@@ -110,14 +141,58 @@ struct PeriodicForm {
     out[4] = h2E * (g_w * g_p + g_wp);
     out[5] = h2E * (g_p * g_p + g_pp);
   }
-};
 
-// ARD squared exponential over D-dim inputs, theta = (h, w_1..w_D):
-// h^2 exp(-1/2 sq) with sq = sum_d ((x_d - x'_d) / w_d)^2, which the caller
-// accumulates one dimension at a time (the Pallas body's order).
-template <typename T>
-__device__ __forceinline__ T ard_k(T sq, T h) {
-  return (h * h) * dexp(T(-0.5) * sq);
-}
+  // u = d i2p, i2p = 1 / (2p), s = sin u, E = exp(a s^2), a = -2 / w^2.
+  // V = 0 (h,h): 2 E; 1 (h,w): c1 s^2 E, c1 = 8h / w^3; 2 (h,p):
+  // c1 d sin(2u) E, c1 = 2h / (w^2 p^2); 3 (w,w): s^2 E (c1 s^2 + c2),
+  // c1 = 16 h^2 / w^6, c2 = -12 h^2 / w^4; 4 (w,p): d sin(2u) E (c1 s^2 + c2),
+  // c1 = 4 h^2 / (w^5 p^2), c2 = -2 h^2 / (w^3 p^2); 5 (p,p):
+  // d E (c1 d sin(2u)^2 + c2 (d cos(2u) / p + 2 sin(2u))), c1 = h^2 / (w^4 p^4),
+  // c2 = -h^2 / (w^2 p^3)
+  template <int V>
+  struct HessValue {
+    static_assert(V >= 0 && V < 6, "periodic's Hessian has six upper-triangle values");
+    T i2p, ip, a, c1, c2;
+    __device__ explicit HessValue(const T* th) {
+      const T h = th[0], w = th[1], p = th[2];
+      const T iw2 = T(1) / (w * w);
+      const T iw = T(1) / w;
+      ip = T(1) / p;
+      i2p = T(0.5) * ip;
+      a = T(-2) * iw2;
+      const T h2 = h * h;
+      const T ip2 = ip * ip;
+      switch (V) {
+        case 0: c1 = T(2); c2 = T(0); break;
+        case 1: c1 = T(8) * h * iw2 * iw; c2 = T(0); break;
+        case 2: c1 = T(2) * h * iw2 * ip2; c2 = T(0); break;
+        case 3: c1 = T(16) * h2 * (iw2 * iw2 * iw2); c2 = T(-12) * h2 * (iw2 * iw2); break;
+        case 4: c1 = T(4) * h2 * (iw2 * iw2 * iw) * ip2; c2 = T(-2) * h2 * (iw2 * iw) * ip2; break;
+        default: c1 = h2 * (iw2 * iw2) * (ip2 * ip2); c2 = -h2 * iw2 * (ip2 * ip); break;
+      }
+    }
+    __device__ __forceinline__ T operator()(T d) const {
+      const T u = d * i2p;
+      const T s = dsin(u);
+      const T s2 = s * s;
+      const T E = dexp(a * s2);
+      if constexpr (V == 0) {
+        return c1 * E;
+      } else if constexpr (V == 1) {
+        return c1 * (s2 * E);
+      } else if constexpr (V == 2) {
+        return c1 * (d * dsin(T(2) * u) * E);
+      } else if constexpr (V == 3) {
+        return (s2 * E) * dfma(c1, s2, c2);
+      } else if constexpr (V == 4) {
+        return (d * dsin(T(2) * u) * E) * dfma(c1, s2, c2);
+      } else {
+        const T s2u = dsin(T(2) * u);
+        const T c2u = dcos(T(2) * u);
+        return (d * E) * dfma(c1 * d, s2u * s2u, c2 * dfma(d * c2u, ip, T(2) * s2u));
+      }
+    }
+  };
+};
 
 }  // namespace gp

@@ -1,11 +1,9 @@
-// B4, B5: matrix-free kernel products; B6: the ARD covariance.  (B4-ARD,
-// the ARD product, has a kernel of its own: ard_matvec.cuh.)
+// B4, B5: matrix-free kernel products.  (B4-ARD, the ARD product, has a
+// kernel of its own: ard_matvec.cuh.)
 //
 // Replaces the Pallas tile bodies of gaussian_processes_tpu/ops/pairwise.py:
 //   B4     _matvec_tile_body      out = K(x, x) V, SE / periodic, 1-D x
 //   B5     _jacvec_tile_body      out[p] = dK/dtheta_p (x, x) U for every p
-//   B6     _ard_tile_body         K[i, j] for ARD-SE, optional s^2 + jitter
-//                                 on the global diagonal
 //
 // B4 / B5.  K (and dK/dtheta) is never stored: device memory sees x, V and
 // the (P, n, r) output only, so what bounds them on the H100 is arithmetic:
@@ -59,12 +57,11 @@
 // operator).  Ragged edges are bounds-checked; flat indices are 64-bit
 // (65536^2 > 2^31).
 //
-// B6 is B1 (pairwise.cu) over D dimensions: a block of kArdCols threads
-// spans neighbouring columns, so stores coalesce, and each thread keeps its
-// column's D coordinates and 1/w_d in registers.
-//
-// B6 multiplies by 1/w_d where the Pallas body divides by w_d: one rounding
-// of difference per term, inside the stated tolerances.
+// The product kernel's 19 instantiations per element type take a while to
+// compile, so the float32 and float64 entry points live in two sources
+// (matvec_f32.cu, matvec_f64.cu) that the build compiles in parallel.
+
+#pragma once
 
 #include <algorithm>
 #include <cstddef>
@@ -83,9 +80,6 @@ constexpr int kTile = 128;        // B4/B5: columns of K per shared-memory tile
 constexpr int kAccBudget = 36;    // B4/B5: accumulators (ROWS * P * RC) a thread holds
 constexpr int kMaxRows = 8;       // B4/B5: most rows a thread owns
 constexpr int kBlocksPerSm = 16;  // B4/B5: blocks per SM the column splits aim for
-constexpr int kMaxArdDim = 16;    // largest D the ARD kernels take
-constexpr int kArdCols = 128;     // B6: threads per block, one column each
-constexpr int kArdRows = 16;      // B6: rows walked by each thread
 constexpr int kMaxGrid = 65535;   // grid axes y and z
 
 // -- what one product evaluates per element (i, j) ---------------------------
@@ -399,110 +393,4 @@ int launch_jacvec(const T* x, const T* u, const T* params, T* out, T* work,
   }
 }
 
-// -- B6 ----------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kArdCols)
-pairwise_ard_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                    const T* __restrict__ params, T* __restrict__ out, int n,
-                    int m, int dim, int with_diag) {
-  const int col = blockIdx.x * kArdCols + threadIdx.x;
-  if (col >= m) return;
-  const T h = params[0];
-  T iw[kMaxArdDim];
-  T xc[kMaxArdDim];
-#pragma unroll
-  for (int d = 0; d < kMaxArdDim; ++d) {
-    iw[d] = d < dim ? T(1) / params[1 + d] : T(0);
-    xc[d] = d < dim ? x2[static_cast<size_t>(col) * dim + d] : T(0);
-  }
-  const T diag = with_diag ? params[1 + dim] : T(0);
-  for (int rb = blockIdx.y; rb * kArdRows < n; rb += gridDim.y) {
-    const int row0 = rb * kArdRows;
-    const int rows = min(kArdRows, n - row0);
-    for (int rr = 0; rr < rows; ++rr) {
-      const int row = row0 + rr;
-      const T* xr = x1 + static_cast<size_t>(row) * dim;
-      T sq = T(0);
-#pragma unroll
-      for (int d = 0; d < kMaxArdDim; ++d) {
-        if (d < dim) {
-          const T t = (xr[d] - xc[d]) * iw[d];
-          sq = gp::dfma(t, t, sq);
-        }
-      }
-      T val = gp::ard_k(sq, h);
-      if (with_diag && row == col) val += diag;
-      out[static_cast<size_t>(row) * m + col] = val;
-    }
-  }
-}
-
-template <typename T>
-int launch_pairwise_ard(const T* x1, const T* x2, const T* params, T* out,
-                        int n, int m, int dim, int with_diag,
-                        cudaStream_t stream) {
-  if (n <= 0 || m <= 0 || dim < 1 || dim > kMaxArdDim) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((m + kArdCols - 1) / kArdCols,
-                  std::min((n + kArdRows - 1) / kArdRows, kMaxGrid));
-  pairwise_ard_kernel<T><<<grid, kArdCols, 0, stream>>>(x1, x2, params, out, n, m,
-                                                        dim, with_diag);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-extern "C" {
-
-// Each entry point returns cudaGetLastError() after its launches (0 =
-// success).  Pointers are device pointers.  `work` holds `splits` slabs of
-// the output (splits * P * n * r values) and may be null when splits == 1;
-// gp_product_splits gives the splits of a B4 (vals = 1) or B5 (vals = P)
-// launch on a card of `sms` SMs.
-
-int gp_product_splits(int vals, int n, int r, int sms) {
-  return splits_for(vals, n, r, sms);
-}
-
-#define GP_PRODUCT_ENTRIES(SUFFIX, T)                                            \
-  int gp_kernel_matvec_##SUFFIX(int device, const void* x, const void* v,        \
-                                const void* params, void* out, void* work,       \
-                                int n, int r, int family, int splits,            \
-                                void* stream) {                                  \
-    cudaError_t err = cudaSetDevice(device);                                     \
-    if (err != cudaSuccess) return static_cast<int>(err);                        \
-    return launch_matvec<T>(static_cast<const T*>(x), static_cast<const T*>(v),  \
-                            static_cast<const T*>(params), static_cast<T*>(out), \
-                            static_cast<T*>(work), n, r, family, splits,         \
-                            static_cast<cudaStream_t>(stream));                  \
-  }                                                                              \
-  int gp_kernel_jacvec_##SUFFIX(int device, const void* x, const void* u,        \
-                                const void* params, void* out, void* work,       \
-                                int n, int r, int family, int splits,            \
-                                void* stream) {                                  \
-    cudaError_t err = cudaSetDevice(device);                                     \
-    if (err != cudaSuccess) return static_cast<int>(err);                        \
-    return launch_jacvec<T>(static_cast<const T*>(x), static_cast<const T*>(u),  \
-                            static_cast<const T*>(params), static_cast<T*>(out), \
-                            static_cast<T*>(work), n, r, family, splits,         \
-                            static_cast<cudaStream_t>(stream));                  \
-  }                                                                              \
-  int gp_pairwise_ard_##SUFFIX(int device, const void* x1, const void* x2,       \
-                               const void* params, void* out, int n, int m,      \
-                               int dim, int with_diag, void* stream) {           \
-    cudaError_t err = cudaSetDevice(device);                                     \
-    if (err != cudaSuccess) return static_cast<int>(err);                        \
-    return launch_pairwise_ard<T>(                                               \
-        static_cast<const T*>(x1), static_cast<const T*>(x2),                    \
-        static_cast<const T*>(params), static_cast<T*>(out), n, m, dim,          \
-        with_diag, static_cast<cudaStream_t>(stream));                           \
-  }
-
-GP_PRODUCT_ENTRIES(f32, float)
-GP_PRODUCT_ENTRIES(f64, double)
-
-#undef GP_PRODUCT_ENTRIES
-
-}  // extern "C"

@@ -1,0 +1,33 @@
+// B4, B5, float64 entry points (the kernels: matvec.cuh).
+
+#include "matvec.cuh"
+
+extern "C" {
+
+// Each entry point returns cudaGetLastError() after its launches (0 =
+// success).  Pointers are device pointers.  `work` holds `splits` slabs of
+// the output (splits * P * n * r values) and may be null when splits == 1.
+
+int gp_kernel_matvec_f64(int device, const void* x, const void* v, const void* params,
+                         void* out, void* work, int n, int r, int family, int splits,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_matvec<double>(
+      static_cast<const double*>(x), static_cast<const double*>(v),
+      static_cast<const double*>(params), static_cast<double*>(out), static_cast<double*>(work), n,
+      r, family, splits, static_cast<cudaStream_t>(stream));
+}
+
+int gp_kernel_jacvec_f64(int device, const void* x, const void* u, const void* params,
+                         void* out, void* work, int n, int r, int family, int splits,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_jacvec<double>(
+      static_cast<const double*>(x), static_cast<const double*>(u),
+      static_cast<const double*>(params), static_cast<double*>(out), static_cast<double*>(work), n,
+      r, family, splits, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -4,25 +4,34 @@
 //   B1  _tile_body       K[i, j] = k(x1_i - x2_j; theta) (+ s^2 + jitter on
 //                        the global diagonal)
 //   B2a _jac_tile_body   dK/dtheta_p, one (n, m) plane per parameter
-//   B2b _hess_tile_body  d2K/dtheta_p dtheta_q, the requested planes
+//   B2b _hess_tile_body  d2K/dtheta_p dtheta_q, all P x P planes or one
 //
 // Bound on the H100: the HBM write of the output, n * m * sizeof(T) bytes per
 // plane (16384^2 f32 = 1.07 GB, about 0.32 ms at 3.35 TB/s).  Each element
 // costs one subtraction and a closed form of a few flops and one or two
 // transcendentals, far below the card's arithmetic rate, and the inputs are
-// two vectors of n + m values.  So the design keeps every output element in
-// registers from evaluation to store and makes each store coalesce: a block
-// of 128 threads spans 128 neighbouring columns, each thread keeps its x2
-// value in a register and walks kRows rows, and x1[row] is one broadcast load
-// for the whole warp.  Ragged edges are masked; the diagonal is row == col on
-// global indices (the TPU body needed iota masks for this).  The
+// two vectors of n + m values.  So the designs keep every output element in
+// registers from evaluation to store and make each store coalesce.  The
 // hyperparameters are read from device memory through a pointer, so the
 // host never synchronises to read them.
 //
-// The derivative builders compute every closed-form expression of one
-// element once and store only the planes named in a small selection table:
-// all P planes (jacobian), all P x P planes filled symmetrically (hessian),
-// or one plane (hessian_pair, whose callers rely on one-slice peak memory).
+// B1: a block of 128 threads spans 128 neighbouring columns, each thread
+// keeps its x2 value in a register and walks kRows rows, and x1[row] is one
+// broadcast load for the whole warp.  Ragged edges are masked; the diagonal
+// is row == col on global indices (the TPU body needed iota masks for this).
+//
+// B2a, B2b: one tile kernel over what an element evaluates (Eval): the P
+// Jacobian values (B2a), the P(P+1)/2 upper-triangle Hessian values stored
+// to all P x P planes (B2b, every plane from one evaluation of E), or one
+// Hessian value (B2b for hessian_pair, whose callers rely on one-slice peak
+// memory), a template per upper-triangle entry that evaluates that value's
+// closed form alone (closed_forms.cuh, HessValue).  A block of 256 threads
+// covers kDerivRows rows by 32 C columns, C = 16 bytes / sizeof(T): the
+// block stages its rows' x1 in shared memory, a thread keeps its C columns'
+// x2 in registers and walks kDerivRowsPerWarp rows, unrolled, and the C
+// values of a plane's row go out as one 16-byte store (per element where
+// m % C != 0 leaves rows unaligned).  The forms keep the accurate expf /
+// sinf.
 
 #include <algorithm>
 #include <cstddef>
@@ -31,18 +40,17 @@
 #include <cuda_runtime.h>
 
 #include "closed_forms.cuh"
+#include "product_common.cuh"
 
 namespace {
 
-constexpr int kCols = 128;  // threads per block, one column each
-constexpr int kRows = 16;   // rows walked by each thread
+constexpr int kCols = 128;  // B1: threads per block, one column each
+constexpr int kRows = 16;   // B1: rows walked by each thread
 constexpr int kMaxGridY = 65535;
-constexpr int kMaxPlanes = 9;  // P x P with P <= 3
-
-struct PlaneSel {
-  int count;
-  int idx[kMaxPlanes];  // index into the jac / hess-upper-triangle tuple
-};
+constexpr int kDerivWarps = 8;                                  // B2: warps per block
+constexpr int kDerivThreads = 32 * kDerivWarps;                 // B2: threads per block
+constexpr int kDerivRowsPerWarp = 4;                            // B2: rows each thread walks
+constexpr int kDerivRows = kDerivWarps * kDerivRowsPerWarp;     // B2: rows per block
 
 template <typename T, typename Form>
 __global__ void __launch_bounds__(kCols)
@@ -68,45 +76,89 @@ pairwise_k_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   }
 }
 
-template <int Count, typename T>
-__device__ __forceinline__ T pick(const T* vals, int t) {
-  T v = vals[0];
-#pragma unroll
-  for (int k = 1; k < Count; ++k) v = (t == k) ? vals[k] : v;
-  return v;
+// -- B2: what an element evaluates, and which value each output plane takes
+
+// position of (p, q), p <= q, in hess's row-major upper triangle
+__host__ __device__ constexpr int tri(int p, int q, int P) {
+  return p * P - p * (p - 1) / 2 + (q - p);
 }
 
+// B2a (Order 1): the P planes of dK/dtheta; B2b (Order 2): the P x P planes
+// of d2K/dtheta2, filled from the upper triangle
 template <typename T, typename Form, int Order>
-__global__ void __launch_bounds__(kCols)
+struct FormEval {
+  static constexpr int P = Form::P;
+  static constexpr int kVals = Order == 1 ? P : P * (P + 1) / 2;
+  static constexpr int kPlanes = Order == 1 ? P : P * P;
+  __host__ __device__ static constexpr int src(int k) {
+    return Order == 1 ? k : (k / P <= k % P ? tri(k / P, k % P, P) : tri(k % P, k / P, P));
+  }
+  T th[P];
+  __device__ explicit FormEval(const T* params) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) th[q] = params[q];
+  }
+  __device__ __forceinline__ void eval(T d, T (&val)[kVals]) const {
+    if constexpr (Order == 1) {
+      Form::jac(d, th, val);
+    } else {
+      Form::hess(d, th, val);
+    }
+  }
+};
+
+template <typename T, typename Value>
+struct PlaneEval {  // B2b: one plane, one closed form
+  static constexpr int kVals = 1;
+  static constexpr int kPlanes = 1;
+  __host__ __device__ static constexpr int src(int) { return 0; }
+  Value value;
+  __device__ explicit PlaneEval(const T* params) : value(params) {}
+  __device__ __forceinline__ void eval(T d, T (&val)[kVals]) const { val[0] = value(d); }
+};
+
+// out[k][i][j] = val_src(k)(x1_i - x2_j), k < kPlanes.  One block per SM as
+// the launch bound's floor: without it ptxas caps the registers and spills
+// (float64's one-plane instantiations)
+template <typename T, typename Eval>
+__global__ void __launch_bounds__(kDerivThreads, 1)
 pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                      const T* __restrict__ params, T* __restrict__ out,
-                      int n, int m, PlaneSel sel) {
-  constexpr int kVals = Order == 1 ? Form::P : Form::P * (Form::P + 1) / 2;
-  const int col = blockIdx.x * kCols + threadIdx.x;
-  if (col >= m) return;
-  T th[Form::P];
+                      const T* __restrict__ params, T* __restrict__ out, int n, int m) {
+  constexpr int C = vec_elems<T>();
+  constexpr int kV = Eval::kVals;
+  __shared__ T xr[kDerivRows];
+  const Eval ev(params);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.x * (32 * C) + lane * C;
+  T xc[C];  // columns past m compute with column m - 1 and store nothing
 #pragma unroll
-  for (int q = 0; q < Form::P; ++q) th[q] = params[q];
-  const T xc = x2[col];
+  for (int c = 0; c < C; ++c) xc[c] = x2[min(col0 + c, m - 1)];
+  const int valid = m - col0;
+  const bool vec = m % C == 0;
   const size_t plane = static_cast<size_t>(n) * m;
-  for (int rb = blockIdx.y; rb * kRows < n; rb += gridDim.y) {
-    const int row0 = rb * kRows;
-    const int rows = min(kRows, n - row0);
-    for (int r = 0; r < rows; ++r) {
-      const int row = row0 + r;
-      T vals[kVals];
-      if constexpr (Order == 1) {
-        Form::jac(x1[row] - xc, th, vals);
-      } else {
-        Form::hess(x1[row] - xc, th, vals);
-      }
-      T* o = out + static_cast<size_t>(row) * m + col;
-      // unrolled so that sel.idx[q] is a static read of the kernel's
-      // parameters (a dynamic index would copy the table to local memory)
+  for (int rb = blockIdx.y; rb * kDerivRows < n; rb += gridDim.y) {
+    const int row_base = rb * kDerivRows;
+    __syncthreads();  // every thread is done with the previous rows
+    if (threadIdx.x < kDerivRows) xr[threadIdx.x] = x1[min(row_base + threadIdx.x, n - 1)];
+    __syncthreads();
 #pragma unroll
-      for (int q = 0; q < kMaxPlanes; ++q) {
-        if (q < sel.count) o[q * plane] = pick<kVals>(vals, sel.idx[q]);
+    for (int q = 0; q < kDerivRowsPerWarp; ++q) {
+      const int ii = q * kDerivWarps + warp;  // the block's warps write neighbouring rows
+      const int row = row_base + ii;
+      if (row >= n) break;
+      const T xi = xr[ii];
+      T vals[kV][C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        T val[kV];
+        ev.eval(xi - xc[c], val);
+#pragma unroll
+        for (int p = 0; p < kV; ++p) vals[p][c] = val[p];
       }
+      T* o = out + static_cast<size_t>(row) * m + col0;
+#pragma unroll
+      for (int k = 0; k < Eval::kPlanes; ++k) stv(o + k * plane, vals[Eval::src(k)], valid, vec);
     }
   }
 }
@@ -137,45 +189,63 @@ int launch_k(const T* x1, const T* x2, const T* params, T* out, int n, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename Form>
-int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out,
-                      int n, int m, int order, const PlaneSel& sel,
+template <typename T, typename Eval>
+int launch_deriv_eval(const T* x1, const T* x2, const T* params, T* out, int n, int m,
                       cudaStream_t stream) {
-  const int n_vals = order == 1 ? Form::P : Form::P * (Form::P + 1) / 2;
-  for (int q = 0; q < sel.count; ++q) {
-    if (sel.idx[q] < 0 || sel.idx[q] >= n_vals) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  const dim3 grid = grid_for(n, m);
-  if (order == 1) {
-    pairwise_deriv_kernel<T, Form, 1><<<grid, kCols, 0, stream>>>(
-        x1, x2, params, out, n, m, sel);
-  } else {
-    pairwise_deriv_kernel<T, Form, 2><<<grid, kCols, 0, stream>>>(
-        x1, x2, params, out, n, m, sel);
-  }
+  constexpr int C = vec_elems<T>();
+  const dim3 grid((m + 32 * C - 1) / (32 * C),
+                  std::min((n + kDerivRows - 1) / kDerivRows, kMaxGridY));
+  pairwise_deriv_kernel<T, Eval><<<grid, kDerivThreads, 0, stream>>>(x1, x2, params, out, n, m);
   return static_cast<int>(cudaGetLastError());
 }
 
+// one Hessian plane: the upper-triangle value V, for V = 0 .. Vals - 1
+template <typename T, typename Form, int V, int Vals>
+int launch_hess_value(const T* x1, const T* x2, const T* params, T* out, int n, int m,
+                      int value, cudaStream_t stream) {
+  if constexpr (V < Vals) {
+    if (value == V) {
+      return launch_deriv_eval<T, PlaneEval<T, typename Form::template HessValue<V>>>(
+          x1, x2, params, out, n, m, stream);
+    }
+    return launch_hess_value<T, Form, V + 1, Vals>(x1, x2, params, out, n, m, value, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// order 1: the Jacobian; order 2 and value < 0: every Hessian plane; order 2
+// and value >= 0: the plane of that upper-triangle value
+template <typename T, typename Form>
+int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out, int n, int m,
+                      int order, int value, cudaStream_t stream) {
+  if (order == 1) {
+    return launch_deriv_eval<T, FormEval<T, Form, 1>>(x1, x2, params, out, n, m, stream);
+  }
+  if (value < 0) {
+    return launch_deriv_eval<T, FormEval<T, Form, 2>>(x1, x2, params, out, n, m, stream);
+  }
+  return launch_hess_value<T, Form, 0, FormEval<T, Form, 2>::kVals>(x1, x2, params, out, n, m,
+                                                                     value, stream);
+}
+
 template <typename T>
-int launch_deriv(const T* x1, const T* x2, const T* params, T* out, int n,
-                 int m, int family, int order, int n_planes,
-                 const int* planes, cudaStream_t stream) {
-  if (n <= 0 || m <= 0 || n_planes <= 0 || n_planes > kMaxPlanes ||
-      (order != 1 && order != 2)) {
+int launch_deriv(int device, const void* x1, const void* x2, const void* params, void* out,
+                 int n, int m, int family, int order, int value, void* stream) {
+  if (n <= 0 || m <= 0 || (order != 1 && order != 2) || (order == 1 && value >= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  PlaneSel sel;
-  sel.count = n_planes;
-  for (int q = 0; q < kMaxPlanes; ++q) sel.idx[q] = q < n_planes ? planes[q] : 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* a = static_cast<const T*>(x1);
+  const T* b = static_cast<const T*>(x2);
+  const T* th = static_cast<const T*>(params);
+  T* o = static_cast<T*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (family) {
     case gp::kSE:
-      return launch_deriv_form<T, gp::SEForm<T>>(x1, x2, params, out, n, m,
-                                                 order, sel, stream);
+      return launch_deriv_form<T, gp::SEForm<T>>(a, b, th, o, n, m, order, value, st);
     case gp::kPeriodic:
-      return launch_deriv_form<T, gp::PeriodicForm<T>>(x1, x2, params, out, n,
-                                                       m, order, sel, stream);
+      return launch_deriv_form<T, gp::PeriodicForm<T>>(a, b, th, o, n, m, order, value, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -186,7 +256,7 @@ int launch_deriv(const T* x1, const T* x2, const T* params, T* out, int n,
 extern "C" {
 
 // Each entry point returns cudaGetLastError() after its launch (0 = success).
-// Pointers are device pointers; `planes` is a host array of n_planes ints.
+// Pointers are device pointers.
 
 int gp_pairwise_k_f32(int device, const void* x1, const void* x2,
                       const void* params, void* out, int n, int m, int family,
@@ -212,32 +282,19 @@ int gp_pairwise_k_f64(int device, const void* x1, const void* x2,
                           static_cast<cudaStream_t>(stream));
 }
 
-int gp_pairwise_deriv_f32(int device, const void* x1, const void* x2,
-                          const void* params, void* out, int n, int m,
-                          int family, int order, int n_planes,
-                          const int* planes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_deriv<float>(static_cast<const float*>(x1),
-                             static_cast<const float*>(x2),
-                             static_cast<const float*>(params),
-                             static_cast<float*>(out), n, m, family, order,
-                             n_planes, planes,
-                             static_cast<cudaStream_t>(stream));
+// order 1: dK/dtheta, (P, n, m); order 2: `value` < 0 gives every plane of
+// d2K/dtheta2, (P, P, n, m), else the (n, m) plane of that upper-triangle
+// value (row-major over p <= q)
+int gp_pairwise_deriv_f32(int device, const void* x1, const void* x2, const void* params,
+                          void* out, int n, int m, int family, int order, int value,
+                          void* stream) {
+  return launch_deriv<float>(device, x1, x2, params, out, n, m, family, order, value, stream);
 }
 
-int gp_pairwise_deriv_f64(int device, const void* x1, const void* x2,
-                          const void* params, void* out, int n, int m,
-                          int family, int order, int n_planes,
-                          const int* planes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_deriv<double>(static_cast<const double*>(x1),
-                              static_cast<const double*>(x2),
-                              static_cast<const double*>(params),
-                              static_cast<double*>(out), n, m, family, order,
-                              n_planes, planes,
-                              static_cast<cudaStream_t>(stream));
+int gp_pairwise_deriv_f64(int device, const void* x1, const void* x2, const void* params,
+                          void* out, int n, int m, int family, int order, int value,
+                          void* stream) {
+  return launch_deriv<double>(device, x1, x2, params, out, n, m, family, order, value, stream);
 }
 
 }  // extern "C"

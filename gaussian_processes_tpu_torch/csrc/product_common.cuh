@@ -1,5 +1,7 @@
-// What the matrix-free products share (B4 and B5 in matvec.cu, B4-ARD in
-// ard_matvec.cuh): the folded exponential and 16-byte loads of staged tiles.
+// What the kernels share: the folded exponential (B4 and B5 in matvec.cuh,
+// B4-ARD in ard_matvec.cuh, B6 in ard_pairwise.cu), 16-byte loads of staged
+// tiles and the padded stride of staged coordinates (B4-ARD, B6), and
+// 16-byte stores of a thread's run of output columns (B2 in pairwise.cu, B6).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +20,14 @@ __device__ __forceinline__ double neg_exp(double sq) { return exp(-sq); }
 // values per 16-byte vector
 template <typename T>
 __host__ __device__ constexpr int vec_elems() { return 16 / static_cast<int>(sizeof(T)); }
+
+// the row stride of a staged coordinate tile: D padded to a whole vector
+// (or to 2 in float32 for D = 2), so each point's coordinates are aligned
+template <typename T, int D>
+__host__ __device__ constexpr int padded_dim() {
+  constexpr int v = vec_elems<T>();
+  return D == 1 ? 1 : (D == 2 ? 2 : (D + v - 1) / v * v);
+}
 
 // N consecutive values from shared memory, 16 bytes at a time where N allows
 template <int N>
@@ -51,6 +61,26 @@ __device__ __forceinline__ void ldv(const double* p, double (&o)[N]) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = p[i];
+  }
+}
+
+// C = vec_elems<T>() values to p[0, C): one 16-byte store when `vec` (p is
+// then 16-byte aligned) and all C lie inside the row, else one store per
+// value below `valid`
+template <typename T, int C>
+__device__ __forceinline__ void stv(T* p, const T (&v)[C], int valid, bool vec) {
+  static_assert(C * sizeof(T) == 16, "a run of output columns is one 16-byte vector");
+  if (vec && valid >= C) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (c < valid) p[c] = v[c];
+    }
   }
 }
 

@@ -46,14 +46,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gp_pairwise_k": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "gp_pairwise_deriv": (
-        _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P,
-    ),
+    "gp_pairwise_deriv": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gp_chol_tile": (_I, _P, _P, _I, _I, _P),
     "gp_chol_tile_inv": (_I, _P, _P, _P, _I, _I, _P),
     "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gp_kernel_jacvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "gp_pairwise_ard": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gp_pairwise_ard": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
     "gp_ard_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 #: entry points that do not depend on the element type and carry no suffix

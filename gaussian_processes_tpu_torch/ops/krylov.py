@@ -180,12 +180,15 @@ def mbcg(matvec, rhs, num_iters: int, tol: float = 1e-10, allreduce=None) -> MBC
 def pivoted_cholesky(kernel, x, rank: int, jitter: float = 1e-6) -> torch.Tensor:
     """Rank-k pivoted Cholesky of K_f(x, x), built matrix-free.
 
-    Greedy diagonal pivoting; each step builds one kernel column (kernel B1,
-    or B6 for ARD, on a card) and multiplies the whole factor, O(n k) per
-    step.  The pivot stays on the device (no host read per step).  Once the
-    residual diagonal falls below 1e3 * eps * max(diag), later columns are
-    frozen to zero: past that floor they would be round-off divided by a
-    clamped pivot and would spoil the Woodbury preconditioner.
+    Greedy diagonal pivoting; each step builds one kernel row K[piv, :]
+    (kernel B1, or B6 for ARD, on a card: a 1 x n output keeps every thread
+    of the launch on an element and its stores on one row; the row equals
+    the column K[:, piv] bit for bit, since x_piv - x_i only changes sign)
+    and multiplies the whole factor, O(n k) per step.  The pivot stays on
+    the device (no host read per step).  Once the residual diagonal falls
+    below 1e3 * eps * max(diag), later columns are frozen to zero: past that
+    floor they would be round-off divided by a clamped pivot and would spoil
+    the Woodbury preconditioner.
     """
     x = torch.as_tensor(x)
     n = x.shape[0]
@@ -195,7 +198,7 @@ def pivoted_cholesky(kernel, x, rank: int, jitter: float = 1e-6) -> torch.Tensor
     floor = torch.max(d) * (1e3 * torch.finfo(dtype).eps)
     for j in range(rank):
         piv = torch.argmax(d).reshape(1)
-        c = kernel(x, x.index_select(0, piv))[:, 0].to(dtype)  # K[:, piv]
+        c = kernel(x.index_select(0, piv), x)[0].to(dtype)  # K[piv, :]
         d_piv = d.index_select(0, piv)[0]
         lp = L.index_select(0, piv)[0]  # (rank,); columns >= j are still zero
         col = (c - L @ lp) / torch.sqrt(torch.clamp_min(d_piv, jitter))

@@ -4,15 +4,19 @@ Counterpart of ``gaussian_processes_tpu/ops/pairwise.py`` (leaf SE and
 periodic kernels, and ARD-SE over (n, D) inputs).  Each public function is a
 wrapper: for tensors on the CPU it evaluates the plain PyTorch version beside
 it; for tensors on a CUDA card it launches the hand-written kernel of
-``csrc/pairwise.cu`` or ``csrc/matvec.cu``, or raises.
+``csrc/pairwise.cu``, ``csrc/ard_pairwise.cu``, ``csrc/matvec.cuh`` or
+``csrc/ard_matvec.cuh``, or raises.
 
 * ``pairwise_matrix`` (B1) replaces ``_tile_body``: K[i, j] = k(x1_i - x2_j)
   with an optional (s^2 + jitter) on the global diagonal, written once.
 * ``pairwise_jacobian`` (B2a) replaces ``_jac_tile_body``: (P, n, m).
 * ``pairwise_hessian`` (B2b) replaces ``_hess_tile_body``: (P, P, n, m)
   filled symmetrically from the upper triangle, or one (n, m) plane when a
-  ``pair`` is given.
-* ``pairwise_matrix_ard`` (B6) replaces ``_ard_tile_body``: ARD-SE K.
+  ``pair`` is given, which evaluates that value's closed form alone
+  (``hessian_plane_folded`` is its arithmetic in plain PyTorch).
+* ``pairwise_matrix_ard`` (B6) replaces ``_ard_tile_body``: ARD-SE K with
+  B4-ARD's arithmetic on coordinates scaled by ``ard_scale``
+  (``pairwise_ard_prescaled_reference`` in plain PyTorch).
 * ``kernel_matvec_fused`` (B4, B4-ARD) replaces ``_matvec_tile_body`` and
   ``_ard_matvec_tile_body``: (K(x, x) + (s^2 + jitter) I) V with K never
   stored; the noise term is added outside the kernel.  B4-ARD
@@ -118,7 +122,9 @@ def _launch_k(kernel, x1, x2, params, with_diag: bool) -> torch.Tensor:
     return out
 
 
-def _launch_deriv(kernel, x1, x2, params, order: int, planes, shape):
+def _launch_deriv(kernel, x1, x2, params, order: int, value: int, shape):
+    """B2a (``order`` 1) or B2b (2): every plane for ``value`` -1, else the
+    plane of that upper-triangle value."""
     name = "pairwise_jacobian" if order == 1 else "pairwise_hessian"
     _check_cuda(name, x1, x2, params)
     n, m = x1.shape[0], x2.shape[0]
@@ -129,10 +135,9 @@ def _launch_deriv(kernel, x1, x2, params, order: int, planes, shape):
     out = torch.empty(shape, dtype=x1.dtype, device=x1.device)
     if n == 0 or m == 0:
         return out
-    sel = (ctypes.c_int * len(planes))(*planes)
     status = _build.entry("gp_pairwise_deriv", x1.dtype)(
         x1.device.index, x1.data_ptr(), x2.data_ptr(), params.data_ptr(),
-        out.data_ptr(), n, m, _family(kernel), order, len(planes), sel,
+        out.data_ptr(), n, m, _family(kernel), order, value,
         _build.stream_of(x1),
     )
     _build.check(status, "gp_pairwise_deriv")
@@ -179,14 +184,6 @@ def pairwise_matrix_reference(kernel, x1, x2, *, noise=None, jitter=0.0) -> torc
 # ---------------------------------------------------------------------------
 
 
-def _hessian_planes(n_params: int, pair):
-    """Upper-triangle indices of the requested Hessian planes, in order."""
-    if pair is not None:
-        return [tri_index(pair[0], pair[1], n_params)]
-    return [tri_index(p, q, n_params)
-            for p in range(n_params) for q in range(n_params)]
-
-
 def pairwise_jacobian(kernel, x1, x2) -> torch.Tensor:
     """dK/dtheta, (P, n, m).  The CUDA path is kernel B2a."""
     x1, x2 = _vectors(x1, x2)
@@ -194,9 +191,8 @@ def pairwise_jacobian(kernel, x1, x2) -> torch.Tensor:
         return pairwise_jacobian_reference(kernel, x1, x2)
     if x1.device.type != "cuda":
         raise _unsupported(x1)
-    P = kernel.n_params
-    return _launch_deriv(kernel, x1, x2, _params_like(kernel, x1), 1,
-                         list(range(P)), (P, x1.shape[0], x2.shape[0]))
+    return _launch_deriv(kernel, x1, x2, _params_like(kernel, x1), 1, -1,
+                         (kernel.n_params, x1.shape[0], x2.shape[0]))
 
 
 def pairwise_jacobian_reference(kernel, x1, x2) -> torch.Tensor:
@@ -216,9 +212,10 @@ def pairwise_hessian(kernel, x1, x2, *, pair=None) -> torch.Tensor:
         raise _unsupported(x1)
     P = kernel.n_params
     n, m = x1.shape[0], x2.shape[0]
-    shape = (n, m) if pair is not None else (P, P, n, m)
+    if pair is None:
+        return _launch_deriv(kernel, x1, x2, _params_like(kernel, x1), 2, -1, (P, P, n, m))
     return _launch_deriv(kernel, x1, x2, _params_like(kernel, x1), 2,
-                         _hessian_planes(P, pair), shape)
+                         tri_index(pair[0], pair[1], P), (n, m))
 
 
 def pairwise_hessian_reference(kernel, x1, x2, *, pair=None) -> torch.Tensor:
@@ -227,18 +224,66 @@ def pairwise_hessian_reference(kernel, x1, x2, *, pair=None) -> torch.Tensor:
     params = _params_like(kernel, x1)
     tri = type(kernel).hess_fn(pairwise_diff(x1, x2), *params.unbind(0))
     P = kernel.n_params
-    planes = _hessian_planes(P, pair)
     if pair is not None:
-        return tri[planes[0]]
-    n, m = x1.shape[0], x2.shape[0]
-    return torch.stack([tri[t] for t in planes]).reshape(P, P, n, m)
+        return tri[tri_index(pair[0], pair[1], P)]
+    return torch.stack([tri[tri_index(p, q, P)] for p in range(P) for q in range(P)]
+                       ).reshape(P, P, x1.shape[0], x2.shape[0])
+
+
+def hessian_plane_folded(kernel, x1, x2, pair) -> torch.Tensor:
+    """The plane ``pair=(p, q)`` of d2K/dtheta2 with B2b's one-plane
+    arithmetic (``HessValue`` in csrc/closed_forms.cuh): the factors that do
+    not depend on the element folded into constants, then that value's
+    closed form alone.  SE: E = exp(a d^2), a = -1 / (2 w^2); periodic:
+    u = d / 2p, s = sin u, E = exp(a s^2), a = -2 / w^2."""
+    x1, x2 = _vectors(x1, x2)
+    P = kernel.n_params
+    value = tri_index(pair[0], pair[1], P)
+    params = _params_like(kernel, x1)
+    d = pairwise_diff(x1, x2)
+    fam = _family(kernel)
+    if fam == 0:
+        h, w = params.unbind(0)
+        iw2 = 1.0 / (w * w)
+        d2 = d * d
+        E = torch.exp((-0.5 * iw2) * d2)
+        if value == 0:  # (h, h): 2 E
+            return 2.0 * E
+        if value == 1:  # (h, w): 2h / w^3 d^2 E
+            return (2.0 * h * iw2 / w) * (d2 * E)
+        # (w, w): d^2 E (h^2 / w^6 d^2 - 3 h^2 / w^4)
+        return (d2 * E) * ((h * h) * (iw2 * iw2 * iw2) * d2 + -3.0 * (h * h) * (iw2 * iw2))
+    if fam != 1:
+        raise TypeError(f"no one-plane form for {type(kernel).__name__}")
+    h, w, p = params.unbind(0)
+    iw2, iw, ip = 1.0 / (w * w), 1.0 / w, 1.0 / p
+    h2, ip2 = h * h, ip * ip
+    u = d * (0.5 * ip)
+    s = torch.sin(u)
+    s2 = s * s
+    E = torch.exp((-2.0 * iw2) * s2)
+    if value == 0:  # (h, h)
+        return 2.0 * E
+    if value == 1:  # (h, w)
+        return (8.0 * h * iw2 * iw) * (s2 * E)
+    s2u = torch.sin(2.0 * u)
+    if value == 2:  # (h, p)
+        return (2.0 * h * iw2 * ip2) * (d * s2u * E)
+    if value == 3:  # (w, w)
+        return (s2 * E) * (16.0 * h2 * (iw2 * iw2 * iw2) * s2 + -12.0 * h2 * (iw2 * iw2))
+    if value == 4:  # (w, p)
+        c1, c2 = 4.0 * h2 * (iw2 * iw2 * iw) * ip2, -2.0 * h2 * (iw2 * iw) * ip2
+        return (d * s2u * E) * (c1 * s2 + c2)
+    c2u = torch.cos(2.0 * u)  # (p, p)
+    c1, c2 = h2 * (iw2 * iw2) * (ip2 * ip2), -h2 * iw2 * (ip2 * ip)
+    return (d * E) * ((c1 * d) * (s2u * s2u) + c2 * ((d * c2u) * ip + 2.0 * s2u))
 
 
 # ---------------------------------------------------------------------------
 # B6: ARD K over (n, D) inputs
 # ---------------------------------------------------------------------------
 
-_MAX_ARD_DIM = 16  # the largest D the ARD kernels take (csrc/matvec.cu, ard_matvec.cuh)
+_MAX_ARD_DIM = 16  # the largest D the ARD kernels take (csrc/ard_pairwise.cu, ard_matvec.cuh)
 
 
 def _is_ard(kernel) -> bool:
@@ -263,7 +308,8 @@ def _points(kernel, x1, x2):
 def pairwise_matrix_ard(kernel, x1, x2, *, noise=None, jitter: float = 0.0) -> torch.Tensor:
     """ARD-SE K[i, j] = k(x1[i], x2[j]) over (n, D) and (m, D) inputs (+
     (noise^2 + jitter) on the diagonal when a scalar noise is given).  The
-    CUDA path is kernel B6."""
+    CUDA path is kernel B6, which evaluates B4-ARD's arithmetic
+    (``pairwise_ard_prescaled_reference``)."""
     if not _is_ard(kernel):
         raise TypeError("pairwise_matrix_ard expects an ARDGaussianKernel")
     x1, x2 = _points(kernel, x1, x2)
@@ -271,11 +317,13 @@ def pairwise_matrix_ard(kernel, x1, x2, *, noise=None, jitter: float = 0.0) -> t
         return pairwise_matrix_ard_reference(kernel, x1, x2, noise=noise, jitter=jitter)
     if x1.device.type != "cuda":
         raise _unsupported(x1)
-    params = _params_like(kernel, x1)
-    with_diag = noise is not None
-    if with_diag:
-        params = torch.cat([params, _diag_term(noise, jitter, x1)[None]])
-    _check_cuda("pairwise_matrix_ard", x1, x2, params)
+    # h, w and the diagonal term by pointer: the kernel divides c / w_d as
+    # ard_scale does (bit for bit for a kernel in x's dtype) and scales each
+    # coordinate as ard_prescale does, so a call is one launch
+    h = kernel.h.to(device=x1.device, dtype=x1.dtype)
+    w = kernel.w.to(device=x1.device, dtype=x1.dtype).contiguous()
+    diag = None if noise is None else _diag_term(noise, jitter, x1)
+    _check_cuda("pairwise_matrix_ard", x1, x2, h, w, *([] if diag is None else [diag]))
     (n, D), m = x1.shape, x2.shape[0]
     if max(n, m) > _INT32_MAX or D > _MAX_ARD_DIM:
         raise ValueError(f"pairwise_matrix_ard: n, m must fit in int32 and D <= "
@@ -284,8 +332,9 @@ def pairwise_matrix_ard(kernel, x1, x2, *, noise=None, jitter: float = 0.0) -> t
     if n == 0 or m == 0:
         return out
     status = _build.entry("gp_pairwise_ard", x1.dtype)(
-        x1.device.index, x1.data_ptr(), x2.data_ptr(), params.data_ptr(),
-        out.data_ptr(), n, m, D, int(with_diag), _build.stream_of(x1),
+        x1.device.index, x1.data_ptr(), x2.data_ptr(), h.data_ptr(), w.data_ptr(),
+        None if diag is None else diag.data_ptr(), out.data_ptr(), n, m, D,
+        _ARD_SCALE[x1.dtype], _build.stream_of(x1),
     )
     _build.check(status, "gp_pairwise_ard")
     _build.launch_counts["pairwise_ard"] += 1
@@ -353,7 +402,7 @@ def _sm_count(index: int) -> int:
 def _product_splits(n: int, r: int, device, vals: int) -> int:
     """Column splits of a B4 (``vals`` = 1) or B5 (``vals`` = P) launch.  The
     rule lives beside the kernel, with the chunk of right-hand sides a block
-    holds and the rows a thread owns (``splits_for``, csrc/matvec.cu)."""
+    holds and the rows a thread owns (``splits_for``, csrc/matvec.cuh)."""
     return _build.library().gp_product_splits(vals, n, r, _sm_count(device.index))
 
 
@@ -382,11 +431,11 @@ def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
     return out
 
 
-# B4, B5 and B4-ARD fold every constant out of the element: with
+# B4, B5, B4-ARD and B6 fold every constant out of the element: with
 # c^2 = log2(e) / 2 in float32 and 1 / 2 in float64, exp(-q / 2) is
 # exp2(-c^2 q) (one ex2 instruction) or exp(-c^2 q), and c / w scales the
-# difference (B4, B5: csrc/matvec.cu) or the coordinates (B4-ARD:
-# csrc/ard_matvec.cuh) once.
+# difference (B4, B5: csrc/matvec.cuh) or the coordinates (B4-ARD:
+# csrc/ard_matvec.cuh; B6: csrc/ard_pairwise.cu) once.
 _FOLD_C2 = {torch.float32: 0.5 * math.log2(math.e), torch.float64: 0.5}
 _ARD_SCALE = {dtype: math.sqrt(c2) for dtype, c2 in _FOLD_C2.items()}
 
@@ -463,11 +512,33 @@ def jacvec_folded_reference(kernel, x, u, block_size=1024) -> torch.Tensor:
 _ARD_BLOCKS_PER_SM = 16
 
 
-def ard_prescale(kernel, x: torch.Tensor) -> torch.Tensor:
-    """(n, D) coordinates x_d * c / w_d in x's dtype, c = ``_ARD_SCALE``."""
+def ard_scale(kernel, x: torch.Tensor) -> torch.Tensor:
+    """(D,) factors c / w_d in x's dtype, c = ``_ARD_SCALE``, each rounded
+    once from float64."""
     w = kernel.w.to(device=x.device, dtype=torch.float64)
-    scale = (_ARD_SCALE[x.dtype] / w).to(x.dtype)
-    return (x * scale).contiguous()
+    return (_ARD_SCALE[x.dtype] / w).to(x.dtype)
+
+
+def ard_prescale(kernel, x: torch.Tensor) -> torch.Tensor:
+    """(n, D) coordinates x_d * c / w_d in x's dtype (``ard_scale``)."""
+    return (x * ard_scale(kernel, x)).contiguous()
+
+
+def pairwise_ard_prescaled_reference(h, xs1, xs2, *, diag=None) -> torch.Tensor:
+    """ARD-SE K with B6's arithmetic, on coordinates pre-scaled by
+    ``ard_prescale``: h^2 exp2(-sq) in float32, h^2 exp(-sq) in float64,
+    sq = sum_d (xs1_d - xs2_d)^2 taken one dimension at a time, plus
+    ``diag`` on the global diagonal when given.  B4-ARD's entries are the
+    same (``ard_matvec_prescaled_reference``)."""
+    h2 = torch.square(torch.as_tensor(h, dtype=xs1.dtype, device=xs1.device))
+    neg_exp = torch.exp2 if xs1.dtype == torch.float32 else torch.exp
+    sq = xs1.new_zeros((xs1.shape[0], xs2.shape[0]))
+    for d in range(xs1.shape[1]):
+        sq = sq + torch.square(xs1[:, d, None] - xs2[None, :, d])
+    K = h2 * neg_exp(-sq)
+    if diag is not None:
+        K.diagonal().add_(torch.as_tensor(diag, dtype=K.dtype, device=K.device))
+    return K
 
 
 def ard_matvec_prescaled_reference(h, xs, v, block_size=1024) -> torch.Tensor:
@@ -476,13 +547,10 @@ def ard_matvec_prescaled_reference(h, xs, v, block_size=1024) -> torch.Tensor:
     float64, sq = sum_d (xs_i - xs_j)^2 taken one dimension at a time."""
     v2, squeeze = _rhs(xs, v)
     h2 = torch.square(torch.as_tensor(h, dtype=xs.dtype, device=xs.device))
-    neg_exp = torch.exp2 if xs.dtype == torch.float32 else torch.exp
     out = v2.new_zeros(v2.shape)
     for j in range(0, xs.shape[0], block_size):
-        sq = xs.new_zeros((xs.shape[0], xs[j:j + block_size].shape[0]))
-        for d in range(xs.shape[1]):
-            sq = sq + torch.square(xs[:, d, None] - xs[None, j:j + block_size, d])
-        out += neg_exp(-sq) @ v2[j:j + block_size]
+        E = pairwise_ard_prescaled_reference(1.0, xs, xs[j:j + block_size])
+        out += E @ v2[j:j + block_size]
     out = h2 * out
     return out[:, 0] if squeeze else out
 

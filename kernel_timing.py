@@ -2,7 +2,7 @@
 """Time the kernels and the paths over them on one CUDA card, so that two
 trees of gaussian_processes_tpu_torch can be compared in one run.
 
-    python3 kernel_timing.py [--root DIR] [--profile DIR] [--ptxas SOURCE]
+    python3 kernel_timing.py [--root DIR] [--profile DIR] [--ptxas SOURCE ...]
 
 ``--root`` imports ``gaussian_processes_tpu_torch`` from DIR (default: this
 checkout).  To compare a parent commit with this one, unpack the parent into
@@ -14,11 +14,12 @@ behind a spin kernel, path walls in s by the host clock around a
 synchronized call.  The script prints the card's name and power limit and
 one JSON line.  ``--profile DIR`` also writes a ``torch.profiler`` breakdown
 by kernel of one warm SE and one warm ARD ``fit_iterative`` at N=65536, of
-one SE value+grad there and of one exact fit at N=16384 to DIR/profile.json
-and prints its summary.  ``--ptxas SOURCE`` (a file name under the package's
-csrc/, as matvec.cu) compiles that source with ``-Xptxas -v`` and prints
-each kernel's registers, spills and stack, and does nothing else.  Needs a
-CUDA card (``--ptxas``: only nvcc); exits 1 without one.
+one SE value+grad there, of one exact fit at N=16384, of one gradient +
+chunked Hessian at N=4096 and of 100 B1 and B6 launches at the pivot
+shapes to DIR/profile.json and prints its summary.  ``--ptxas SOURCE ...`` (file names under the
+package's csrc/, as matvec_f32.cu) compiles those sources with ``-Xptxas
+-v`` and prints each kernel's registers, spills and stack, and does nothing
+else.  Needs a CUDA card (``--ptxas``: only nvcc); exits 1 without one.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import collections
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -65,8 +67,10 @@ def measure_exact_and_ard(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     cfg1 = CONFIGS["config1_fit_se500"]
     k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
-    x16, x4 = (torch.as_tensor(make_data(dataclasses.replace(cfg1.data, n=n), "float32")[0],
-                               device=dev) for n in (cs.K_N, cs.GRAD_N))
+    x16 = torch.as_tensor(make_data(dataclasses.replace(cfg1.data, n=cs.K_N), "float32")[0],
+                          device=dev)
+    x4, y4, _ = (torch.as_tensor(a, device=dev)
+                 for a in make_data(dataclasses.replace(cfg1.data, n=cs.GRAD_N), "float32"))
     noise = torch.tensor(cs.ITER_NOISE, dtype=torch.float32, device=dev)
     K16 = pw.pairwise_matrix(k, x16, x16, noise=0.1, jitter=1e-6)
 
@@ -89,6 +93,18 @@ def measure_exact_and_ard(dev) -> dict:
     out[f"B2a_{cs.GRAD_N}_ms"] = cs.time_ms(lambda: pw.pairwise_jacobian(k, x4, x4), 10)
     out[f"B2b_{cs.GRAD_N}_pair_ms"] = cs.time_ms(
         lambda: pw.pairwise_hessian(k, x4, x4, pair=(0, 1)), 10)
+    for p in (0, 1):  # the chunked Hessian's other SE planes
+        out[f"B2b_{cs.GRAD_N}_pair_{p}{p}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_hessian(k, x4, x4, pair=(p, p)), 10)
+    out[f"B2b_{cs.GRAD_N}_all_planes_ms"] = cs.time_ms(lambda: pw.pairwise_hessian(k, x4, x4), 10)
+
+    def grad_and_hessian():  # as chip_smoke.py's exact path times it
+        gpx.log_marginal_value_and_grad(k, x4, y4, cfg1.fit.noise, cfg1.fit.jitter)
+        gpx.log_marginal_hessian(k, x4, y4, cfg1.fit.noise, cfg1.fit.jitter)
+
+    grad_and_hessian()
+    out[f"grad_hess_wall_s_{cs.GRAD_N}"] = statistics.median(
+        wall_s(grad_and_hessian) for _ in range(15))
     del K16
     torch.cuda.empty_cache()
 
@@ -105,10 +121,13 @@ def measure_exact_and_ard(dev) -> dict:
     out[f"B6_{cs.K_N}_ms"] = cs.time_ms(lambda: pw.pairwise_matrix_ard(
         ka, xa16, xa16, noise=noise, jitter=cs.ITER_JITTER), 10)
 
-    # B6 at the pivot-column shape of krylov.pivoted_cholesky
+    # B6 at krylov.pivoted_cholesky's shapes: the column it built before,
+    # the row it builds now
     piv = xa[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
     out[f"B6_pivot_column_{cs.ITER_N}_ms"] = cs.time_ms(
         lambda: pw.pairwise_matrix_ard(ka, xa, piv), 200)
+    out[f"B6_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(
+        lambda: pw.pairwise_matrix_ard(ka, piv, xa), 200)
     return out
 
 
@@ -130,6 +149,12 @@ def measure_products(dev) -> dict:
             out[f"B4_{name}_r{r}_ms"] = cs.time_ms(
                 lambda: pw.kernel_matvec_fused(kern, xs, v, noise, cs.ITER_JITTER), 10)
         out[f"B5_{name}_r9_ms"] = cs.time_ms(lambda: pw.kernel_jacvec_fused(kern, xs, u), 5)
+    # B1 at krylov.pivoted_cholesky's shapes, column and row
+    piv = xs[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
+    out[f"B1_pivot_column_{cs.ITER_N}_ms"] = cs.time_ms(
+        lambda: pw.pairwise_matrix(ks, xs, piv), 200)
+    out[f"B1_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(
+        lambda: pw.pairwise_matrix(ks, piv, xs), 200)
     for key in ("se_fit_iterative_wall_s", "se_fit_iterative_warm_wall_s"):
         out[key] = wall_s(lambda: gpx.fit_iterative(ks, xs, ys, cs.ITER_NOISE, cs.seed(10),
                                                     **cs.ITER_OPTS))
@@ -141,11 +166,14 @@ def measure_products(dev) -> dict:
 
 def profile(dev, out_dir: str) -> dict:
     """Device time by kernel of one warm SE fit, SE value+grad and ARD fit
-    at ITER_N and of one exact fit at K_N."""
+    at ITER_N, of one exact fit at K_N, of one gradient + chunked Hessian
+    at GRAD_N, and of 100 B1 and B6 launches at each pivot shape of the
+    pivoted Cholesky (the kernel alone, without the time between launches)."""
     import dataclasses
 
     import torch
     import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
     from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
 
     xa, ya, ka = cs.ard_problem(cs.ITER_N, dev)
@@ -154,6 +182,14 @@ def profile(dev, out_dir: str) -> dict:
     x, y, _ = (torch.as_tensor(a, device=dev)
                for a in make_data(dataclasses.replace(cfg1.data, n=cs.K_N), "float32"))
     k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
+    x4, y4, _ = (torch.as_tensor(a, device=dev)
+                 for a in make_data(dataclasses.replace(cfg1.data, n=cs.GRAD_N), "float32"))
+    pa = xa[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
+    ps = xs[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
+
+    def times100(fn):
+        return lambda: [fn() for _ in range(100)]
+
     runs = {
         f"se_fit_iterative_{cs.ITER_N}": lambda: gpx.fit_iterative(
             ks, xs, ys, cs.ITER_NOISE, cs.seed(10), **cs.ITER_OPTS),
@@ -162,6 +198,13 @@ def profile(dev, out_dir: str) -> dict:
         f"ard_fit_iterative_{cs.ITER_N}": lambda: gpx.fit_iterative(
             ka, xa, ya, cs.ITER_NOISE, cs.seed(12), **cs.ITER_OPTS),
         f"exact_fit_{cs.K_N}": lambda: gpx.fit(k, x, y, cfg1.fit.noise, cfg1.fit.jitter),
+        f"grad_hess_{cs.GRAD_N}": lambda: (
+            gpx.log_marginal_value_and_grad(k, x4, y4, cfg1.fit.noise, cfg1.fit.jitter),
+            gpx.log_marginal_hessian(k, x4, y4, cfg1.fit.noise, cfg1.fit.jitter)),
+        "B6_pivot_column_x100": times100(lambda: pw.pairwise_matrix_ard(ka, xa, pa)),
+        "B6_pivot_row_x100": times100(lambda: pw.pairwise_matrix_ard(ka, pa, xa)),
+        "B1_pivot_column_x100": times100(lambda: pw.pairwise_matrix(ks, xs, ps)),
+        "B1_pivot_row_x100": times100(lambda: pw.pairwise_matrix(ks, ps, xs)),
     }
     result = {}
     for name, fn in runs.items():
@@ -187,40 +230,49 @@ def profile(dev, out_dir: str) -> dict:
             for name, r in result.items()}
 
 
-def ptxas(source: str) -> int:
-    """Compile one kernel source with ``-Xptxas -v`` and print, per kernel,
-    its registers, spill bytes and stack frame."""
+def ptxas(sources: list) -> int:
+    """Compile kernel sources with ``-Xptxas -v``, one nvcc each, started
+    together, and print, per kernel, its registers, spill bytes and stack
+    frame, and each source's compile seconds."""
     from gaussian_processes_tpu_torch.ops import _build
 
+    status = 0
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC),
-               "-c", "-o", str(Path(tmp) / "out.o"), str(_build.CSRC / source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(proc.stderr, file=sys.stderr)
-        return 1
-    filt = subprocess.run(["cu++filt"], input=proc.stderr, capture_output=True, text=True)
-    text = filt.stdout if filt.returncode == 0 else proc.stderr
-    kernels = re.findall(
-        r"Compiling entry function '(.*?)' for 'sm_90a'.*?(\d+) bytes stack frame, "
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
-        text, flags=re.S)
-    for name, stack, stores, loads, regs in kernels:
-        name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)|^void ", "", name)
-        print(json.dumps({"kernel": name.split(">(")[0] + ">", "registers": int(regs),
-                          "spill_stores": int(stores), "spill_loads": int(loads),
-                          "stack": int(stack)}))
-    print(json.dumps({"source": source, "kernels": len(kernels), "compile_s": seconds}))
-    return 0
+        procs = []
+        for i, source in enumerate(sources):
+            cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                   str(_build.CSRC), "-c", "-o", str(Path(tmp) / f"{i}.o"),
+                   str(_build.CSRC / source)]
+            procs.append((source, time.perf_counter(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)))
+        for source, t0, proc in procs:
+            _, err = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(err, file=sys.stderr)
+                status = 1
+                continue
+            filt = subprocess.run(["cu++filt"], input=err, capture_output=True, text=True)
+            text = filt.stdout if filt.returncode == 0 else err
+            kernels = re.findall(
+                r"Compiling entry function '(.*?)' for 'sm_90a'.*?(\d+) bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+                text, flags=re.S)
+            for name, stack, stores, loads, regs in kernels:
+                name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)|^void ", "", name)
+                print(json.dumps({"kernel": name.split(">(")[0] + ">", "registers": int(regs),
+                                  "spill_stores": int(stores), "spill_loads": int(loads),
+                                  "stack": int(stack)}))
+            print(json.dumps({"source": source, "kernels": len(kernels), "compile_s": seconds}))
+    return status
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--profile", default=None, metavar="DIR")
-    parser.add_argument("--ptxas", default=None, metavar="SOURCE")
+    parser.add_argument("--ptxas", default=None, nargs="+", metavar="SOURCE")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))  # ahead of this file's directory
     if args.ptxas:

@@ -1,16 +1,19 @@
-"""B4-ARD's pre-scaled coordinates against the JAX package.
+"""B4-ARD's and B6's pre-scaled coordinates against the JAX package.
 
-Kernel B4-ARD (csrc/ard_matvec.cuh) takes coordinates scaled once per call by
-``ard_prescale`` and evaluates k = h^2 exp2(-sum_d (xs_i - xs_j)^2) in
-float32 (exp in float64).  On the CPU that reformulation is held against the
-JAX package's fused ARD matvec and ARD K builder (Pallas kernels in
-interpret mode, as tests/test_pairwise_pallas.py runs them), on numpy-seeded
-inputs, for D in {1, 3, 8} and r in {1, 8}:
+Kernels B4-ARD (csrc/ard_matvec.cuh) and B6 (csrc/ard_pairwise.cu) take
+coordinates scaled once per call by ``ard_prescale`` (``ard_scale``) and
+evaluate k = h^2 exp2(-sum_d (xs_i - xs_j)^2) in float32 (exp in float64).
+On the CPU that reformulation is held against the JAX package's fused ARD
+matvec and ARD K builder (Pallas kernels in interpret mode, as
+tests/test_pairwise_pallas.py runs them), on numpy-seeded inputs, for D in
+{1, 3, 8} and r in {1, 8}:
 
 * the plain product and K on inputs pre-scaled by 1 / w with unit
   lengthscales;
 * the kernel's own arithmetic (``ard_matvec_prescaled_reference`` on
-  ``ard_prescale``'s coordinates).
+  ``ard_prescale``'s coordinates);
+* B6's arithmetic, K by ``pairwise_ard_prescaled_reference``, against the
+  JAX ARD K builder, with and without the diagonal.
 
 Tolerances: float64 rtol 1e-10 (K elementwise, the product against the row
 sums of |K| |V|); float32 1e-5 of the row sums of |K| |V| for the product and
@@ -77,6 +80,44 @@ def test_prescaled_product_matches_jax(D, r, dtype):
     assert xs.dtype == tdt and xs.shape == tx.shape and xs.is_contiguous()
     got = tpw.ard_matvec_prescaled_reference(k.h, xs, tv).double().numpy()
     assert np.all(np.abs(got - want) <= allowance)
+
+
+@pytest.mark.parametrize("with_diag", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("D", [1, 3, 8])
+def test_prescaled_K_matches_jax(D, dtype, with_diag):
+    """B6's arithmetic (``pairwise_ard_prescaled_reference`` on the
+    coordinates ``ard_prescale`` gives) against JAX's ARD K builder, on a
+    rectangular (150, 97) block and on the square block with its diagonal:
+    float64 rtol 1e-10; float32 1e-5 relative plus 1e-6 of the largest
+    entry."""
+    x, _, w = _problem(D, 1)
+    x2 = np.random.default_rng(D).uniform(-2, 2, (97, D))
+    tdt = getattr(torch, dtype)
+    jk = gpt.ARDGaussianKernel(h=jnp.asarray(H, dtype), w=jnp.asarray(w, dtype))
+    k = gpx.ARDGaussianKernel(H, torch.as_tensor(w, dtype=tdt), dtype=tdt)
+    diag = dict(noise=0.3, jitter=1e-6) if with_diag else {}
+    for b in (x2, x):
+        want = np.asarray(jpw.pairwise_matrix_ard(jk, jnp.asarray(x, dtype), jnp.asarray(b, dtype),
+                                                  block=BLOCK, interpret=True, **diag),
+                          dtype=np.float64)
+        tx, tb = torch.as_tensor(x, dtype=tdt), torch.as_tensor(b, dtype=tdt)
+        d = tpw._diag_term(0.3, 1e-6, tx) if with_diag else None
+        got = tpw.pairwise_ard_prescaled_reference(k.h, tpw.ard_prescale(k, tx),
+                                                   tpw.ard_prescale(k, tb), diag=d)
+        assert got.dtype == tdt and got.shape == want.shape
+        atol = 0.0 if dtype == "float64" else 1e-6 * np.abs(want).max()
+        np.testing.assert_allclose(got.double().numpy(), want, rtol=TOL[dtype], atol=atol)
+
+
+def test_ard_scale_is_prescales_factor():
+    x, _, w = _problem(8, 1, n=30)
+    for dtype in (torch.float32, torch.float64):
+        k = gpx.ARDGaussianKernel(H, torch.as_tensor(w, dtype=dtype), dtype=dtype)
+        tx = torch.as_tensor(x, dtype=dtype)
+        s = tpw.ard_scale(k, tx)
+        assert s.dtype == dtype and s.shape == (8,)
+        assert torch.equal(tx * s, tpw.ard_prescale(k, tx))
 
 
 def test_prescale_folds_the_exponent_base():

@@ -5,7 +5,7 @@ JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Float32 tolerances: B1/B2 rtol 1e-5 with an atol of 1e-6 of the array's
+Float32 tolerances: B1/B2/B6 rtol 1e-5 with an atol of 1e-6 of the array's
 largest value (the kernel contracts multiply-adds into FMAs, the plain
 version rounds each operation).  B3: relative Frobenius distance from the
 plain factor 3e-5 (f32; two float32 factorizations of a tile with
@@ -276,6 +276,70 @@ def test_ard_pairwise_kernel_matches_plain(cuda, dtype):
            dtype)
     _close(tpw.pairwise_matrix_ard(k, x1, x1, noise=0.1, jitter=1e-6),
            tpw.pairwise_matrix_ard_reference(k, x1, x1, noise=0.1, jitter=1e-6), dtype)
+
+
+@pytest.mark.parametrize("with_diag", [False, True])
+@pytest.mark.parametrize("n,m", [(777, 1234), (65536, 1), (1, 65536), (3, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [1, 3, 8, 16])
+def test_ard_pairwise_kernel_over_dims_and_shapes(cuda, D, dtype, n, m, with_diag):
+    """B6 (the tile layout at 777 x 1234, the flat one below 128 rows or
+    columns) against the plain version of its own arithmetic and against
+    the plain ARD K."""
+    k = gpx.ARDGaussianKernel(1.1, torch.linspace(0.6, 2.4, D, dtype=torch.float64),
+                              dtype=dtype, device=cuda)
+    x1, x2 = _points(n, D, 30 + D, dtype, cuda), _points(m, D, 31 + D, dtype, cuda)
+    diag = dict(noise=0.1, jitter=1e-6) if with_diag else {}
+    before = _build.launch_counts["pairwise_ard"]
+    got = tpw.pairwise_matrix_ard(k, x1, x2, **diag)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["pairwise_ard"] == before + 1
+    assert got.shape == (n, m) and got.dtype == dtype
+    d = tpw._diag_term(0.1, 1e-6, x1) if with_diag else None
+    _close(got, tpw.pairwise_ard_prescaled_reference(k.h, tpw.ard_prescale(k, x1),
+                                                     tpw.ard_prescale(k, x2), diag=d), dtype)
+    _close(got, tpw.pairwise_matrix_ard_reference(k, x1, x2, **diag), dtype)
+
+
+@pytest.mark.parametrize("n", [100, 777])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [1, 3, 8, 16])
+def test_ard_pairwise_symmetric_with_exact_diagonal(cuda, D, dtype, n):
+    """K(x, x) from B6 is bitwise symmetric and its diagonal is exactly
+    h^2 + (noise^2 + jitter), with and without the noise term."""
+    k = gpx.ARDGaussianKernel(0.9, torch.linspace(0.5, 2.0, D, dtype=torch.float64),
+                              dtype=dtype, device=cuda)
+    x = _points(n, D, 40 + D, dtype, cuda)
+    h2 = k.h.to(dtype) * k.h.to(dtype)
+    for diag in ({}, dict(noise=0.2, jitter=1e-6)):
+        K = tpw.pairwise_matrix_ard(k, x, x, **diag)
+        assert torch.equal(K, K.T)
+        want = h2 + tpw._diag_term(0.2, 1e-6, x) if diag else h2
+        assert torch.equal(K.diagonal(), want.expand(n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family,pair", [("se", (0, 0)), ("se", (0, 1)), ("se", (1, 1)),
+                                         ("periodic", (0, 0)), ("periodic", (0, 1)),
+                                         ("periodic", (0, 2)), ("periodic", (1, 1)),
+                                         ("periodic", (1, 2)), ("periodic", (2, 2))])
+def test_hessian_plane_kernel_matches_plain(cuda, family, pair, dtype):
+    """B2b's one-plane instantiations, each pair in both orders and on
+    shapes that are not tile multiples, against the plain plane and the
+    plain version of their own arithmetic; then every plane at once."""
+    k = KERNELS[family](dtype, cuda)
+    for n, m in ((129, 257), (300, 300), (1000, 1)):
+        x1, x2 = _x(n, 50, dtype, cuda), _x(m, 51, dtype, cuda)
+        for p, q in (pair, pair[::-1]):
+            before = _build.launch_counts["pairwise_hess"]
+            got = tpw.pairwise_hessian(k, x1, x2, pair=(p, q))
+            torch.cuda.synchronize()
+            assert _build.launch_counts["pairwise_hess"] == before + 1
+            _close(got, tpw.pairwise_hessian_reference(k, x1, x2, pair=(p, q)), dtype)
+            _close(got, tpw.hessian_plane_folded(k, x1, x2, (p, q)), dtype)
+        _close(tpw.pairwise_hessian(k, x1, x2), tpw.pairwise_hessian_reference(k, x1, x2), dtype)
+        _close(tpw.pairwise_jacobian(k, x1, x2), tpw.pairwise_jacobian_reference(k, x1, x2),
+               dtype)
 
 
 def test_fit_iterative_on_card_matches_cpu(cuda):

@@ -291,6 +291,32 @@ def test_pivoted_cholesky_matches_jax(family):
     _close(got @ got.T, want @ want.T, rtol=1e-8, atol=1e-12)
 
 
+def _pivoted_cholesky_by_columns(kernel, x, rank, jitter=1e-6):
+    """``krylov.pivoted_cholesky`` with each step's kernel column K[:, piv]
+    where the port builds the row K[piv, :]."""
+    n, dtype = x.shape[0], x.dtype
+    d = kernel.kdiag(x).to(dtype)
+    L = torch.zeros((n, rank), dtype=dtype)
+    floor = torch.max(d) * (1e3 * torch.finfo(dtype).eps)
+    for j in range(rank):
+        piv = torch.argmax(d).reshape(1)
+        c = kernel(x, x.index_select(0, piv))[:, 0]
+        d_piv = d.index_select(0, piv)[0]
+        col = (c - L @ L.index_select(0, piv)[0]) / torch.sqrt(torch.clamp_min(d_piv, jitter))
+        L[:, j] = torch.where(d_piv > floor, col, torch.zeros_like(col))
+        d = torch.clamp_min(d - L[:, j] * L[:, j], 0.0)
+    return L
+
+
+@pytest.mark.parametrize("family", ["se", "periodic", "ard"])
+def test_pivoted_cholesky_rows_equal_columns(family):
+    """The factor built from pivot rows is the factor built from pivot
+    columns, bit for bit, in float64: x_piv - x_i only changes sign."""
+    _, tk = _pair(family)
+    x = _t(_x(family, 300, seed=17))
+    assert torch.equal(tkr.pivoted_cholesky(tk, x, 40), _pivoted_cholesky_by_columns(tk, x, 40))
+
+
 def test_pivoted_cholesky_over_rank_freezes_float32():
     _, tk = _pair("se")
     wide = tk.with_params(torch.tensor([1.3, 2.5], dtype=torch.float32))

@@ -103,6 +103,26 @@ def test_hessian_twin_matches_pallas(family, n, m):
             _close_planes(plane.numpy(), want[p, q])
 
 
+@pytest.mark.parametrize("family,pair", [("se", (0, 0)), ("se", (0, 1)), ("se", (1, 1)),
+                                         ("periodic", (0, 0)), ("periodic", (0, 1)),
+                                         ("periodic", (0, 2)), ("periodic", (1, 1)),
+                                         ("periodic", (1, 2)), ("periodic", (2, 2))])
+@pytest.mark.parametrize("n,m", [(129, 257), (64, 64)])
+def test_hessian_plane_folded_matches_pallas(family, pair, n, m):
+    """B2b's one-plane arithmetic (constants folded per launch, one value's
+    closed form) against the JAX Hessian's plane, float64: rtol 1e-10 with
+    an atol of 1e-10 of the plane's largest value for the zero crossings of
+    the second-derivative planes."""
+    jk, tk = _pair(family)
+    x1, x2 = _inputs(n, m, seed=4)
+    want = np.asarray(jpw.pairwise_hessian(jk, x1, x2, block=(128, 128), interpret=True))
+    for p, q in (pair, pair[::-1]):
+        got = tpw.hessian_plane_folded(tk, _t(x1), _t(x2), (p, q)).numpy()
+        assert got.shape == (n, m)
+        np.testing.assert_allclose(got, want[p, q], rtol=1e-10,
+                                   atol=1e-10 * np.abs(want[p, q]).max())
+
+
 def test_cpu_wrappers_launch_nothing():
     _, tk = _pair("periodic")
     x = _t(np.linspace(-1, 1, 33))
@@ -140,9 +160,9 @@ def test_float32_twin_keeps_dtype():
 
 def test_build_sources_and_hash():
     names = [p.name for p in _build.sources()]
-    assert names == ["ard_matvec_f32.cu", "ard_matvec_f64.cu", "chol_tile.cu", "matvec.cu",
-                     "pairwise.cu", "ard_matvec.cuh", "closed_forms.cuh", "product_common.cuh",
-                     "splits.cuh"]
+    assert names == ["ard_matvec_f32.cu", "ard_matvec_f64.cu", "ard_pairwise.cu", "chol_tile.cu",
+                     "matvec_f32.cu", "matvec_f64.cu", "pairwise.cu", "ard_matvec.cuh",
+                     "closed_forms.cuh", "matvec.cuh", "product_common.cuh", "splits.cuh"]
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     flags = " ".join(_build.NVCC_FLAGS)

@@ -1,6 +1,6 @@
 """B4's and B5's folded arithmetic against the JAX package.
 
-Kernels B4 and B5 (csrc/matvec.cu) fold every constant out of the element:
+Kernels B4 and B5 (csrc/matvec.cuh) fold every constant out of the element:
 SE is t = (x_i - x_j) s with s = c / w, E = exp2(-t^2) in float32 (exp in
 float64), the Jacobian's values E and E t^2, and h^2, 2h, h^2 / (c^2 w)
 multiply the row sums once; periodic likewise with g = sin(d / 2p) 2s.  On
