@@ -18,6 +18,10 @@
    events, times the PyTorch calls for the same function where there are
    any (``torch.linalg.cholesky_ex`` for B3's factor, followed by
    ``solve_triangular`` for its inverse) and computes each kernel's bound.
+   B1 and B2a over a table of 64 chains' parameters and the blocked factor
+   of a stack of 64 matrices (B3 on (64, 128, 128) stacks) are held against
+   their plain versions at the samplers' N = 500, SE and periodic, float32
+   and float64, with a non-PD chain that must be NaN alone.
 4. Drives the main paths, each with the launch counters reset just before
    it and read just after: the exact-GP path
    (the ``fit`` workload of BASELINE config #1 through the CLI at N=500 and
@@ -26,13 +30,19 @@
    N=4096) and the matrix-free path (the bench's iterative workload, SE at
    N=65536: ``fit_iterative``, both predictions, the stochastic gradient; ARD
    over 8 dimensions: ``fit_iterative`` at N=65536 and the exact fit at
-   N=16384; five Adam steps of ``fit_mle_iterative`` at N=16384).  Requires
+   N=16384; five Adam steps of ``fit_mle_iterative`` at N=16384), then
+   through the CLI config #2 (periodic type-II MLE, 4 restarts) and config
+   #3 (64 chains at N=500) with ChEES and with NUTS, float32.  Requires
    every kernel of a path to have launched in that path's run.
 5. Checks the results against independent plain float64 computations on the
    card (pairwise twins + torch.linalg): true residuals of the iterative
    solves, the predictive mean against the generating function, and at
    N=16384 alpha, the log marginal and its gradient against a dense
-   Cholesky, the stochastic ones within 4 of their standard errors.
+   Cholesky, the stochastic ones within 4 of their standard errors; config
+   #2's recovered period and noise against the truth and its lml against
+   the same task in float64; config #3's posterior means against the
+   reference's within 4 Monte-Carlo standard errors, with split R-hat,
+   acceptance and divergences.
 6. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check makes the script exit non-zero without the final line.
@@ -108,6 +118,45 @@ N_TEST_MEAN, N_TEST_DIAG = 1000, 64
 # dense float64 solve at N=16384, stochastic estimates in standard errors
 ITER_RESIDUAL, ITER_RMSE, ITER_ALPHA_REL, ITER_SE = 1e-4, 0.05, 1e-3, 4.0
 
+# the samplers' batched evaluation: config #3's 64 chains at its N, each
+# chain's (h, w[, p], s) drawn around config #3's posterior (BASELINE.md)
+CHAINS, CHAIN_N, CHAIN_NONPD = 64, 500, 7
+CHAIN_CENTER = {"se": (1.7, 1.16, 0.094), "periodic": (1.0, 1.0, 0.5, 0.1)}
+# config #2 (BASELINE.md: the reference recovered p = 0.4998, s = 0.098 on
+# sin(2x) data, whose period pi is p = 0.5 in the kernel's units).  Which
+# mode a restart climbs into is chaotic in the rounding: from the same four
+# starts the float64 run finds p = 0.5 and the float32 run on the card
+# p = 1.0 (a local maximum, 11.7 nats lower), and the JAX package's own
+# L-BFGS from its own four starts finds p = 0.5 in float32 and the
+# degenerate p -> infinity in float64 (PERF.md).  So the float64 run holds
+# the period and noise, the float32 run the noise and a converged optimum:
+# its lml, in float64, within MLE_LML_NATS of where float64 L-BFGS goes from
+# it (the float32 value's own error, ~0.5 nats near p = 0.5, is printed)
+MLE_P, MLE_P_TOL, MLE_S, MLE_S_TOL, MLE_LML_NATS = 0.5, 0.01, 0.1, 0.02, 0.1
+# config #3: the posterior means of (h, w, s) to within this many
+# Monte-Carlo standard errors (sd / sqrt(ESS)) of this run's draws, against
+# the float64 quadrature of the same posterior on the card (a grid over u =
+# log theta, GRID points per axis between the bounds); the reference's
+# published means (BASELINE.md:39) are printed beside: its ChEES h lies
+# 0.027 below the quadrature (PERF.md, Findings)
+CHEES_REF, NUTS_REF, SAMPLER_SE = (1.704, 1.160, 0.0938), (1.715, 1.162, 0.0938), 4.0
+GRID = ((-1.4, 3.4, 97), (-0.6, 0.9, 61), (-2.53, -2.20, 34))
+GRID_EDGE_MASS = 1e-4
+CHEES_RHAT = 1.01
+# ChEES's mean acceptance: its step size adapts the chains' harmonic-mean
+# acceptance to 0.651, which leaves the arithmetic mean near 0.95 (the JAX
+# package's own ChEES gave 0.945 and the port 0.955 on one CPU problem,
+# PERF.md); the reference's 0.759 came from arithmetic pooling.  Above 0.99
+# the chains would be frozen
+CHEES_ACCEPT = (0.55, 0.99)
+NUTS_DIVERGENT = 0.01
+# NUTS: 500 warmup + 1000 draws took 106 and 154 s on the card (the same
+# draws; the host sets the wall), against the 120 s allowed here, so the
+# run is cut to 200 + 300 draws with the looser R-hat limit (the full run
+# goes through the CLI by hand; PERF.md)
+NUTS_WARMUP, NUTS_SAMPLES = 200, 300
+NUTS_RHAT = 1.01 if NUTS_SAMPLES == 1000 else 1.05
+
 # the least time the card could take for a kernel's work: the larger of its
 # operations over the float32 peak outside the tensor cores and its bytes
 # (each input read once, each output written once) over the HBM rate (NVIDIA
@@ -139,8 +188,9 @@ def ard_ops(dim: int) -> int:
     return 3 * dim + 1
 
 KERNEL_ROWS = [
-    # (name, launch counter, timed row, source, replaces); B3's row times the
-    # variant with the inverse, the one the paths launch
+    # (name, launch counter, timed row, source, replaces[, the paths whose
+    # launches it counts, all by default]); B3's rows time the variant with
+    # the inverse, the one the paths launch
     ("B1 pairwise K", "pairwise_k", "pairwise_k", "gaussian_processes_tpu_torch/csrc/pairwise.cu",
      "gaussian_processes_tpu/ops/pairwise.py:88"),
     ("B2a pairwise dK/dtheta", "pairwise_jac", "pairwise_jac",
@@ -160,13 +210,25 @@ KERNEL_ROWS = [
     ("B6 ARD pairwise K", "pairwise_ard", "pairwise_ard",
      "gaussian_processes_tpu_torch/csrc/ard_pairwise.cu",
      "gaussian_processes_tpu/ops/pairwise.py:188"),
+    # the samplers' and MLE's cases: one launch per batched evaluation
+    ("B1 pairwise K over a chain table", "pairwise_k_chains", "pairwise_k_chains",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:88"),
+    ("B2a pairwise dK/dtheta over a chain table", "pairwise_jac_chains", "pairwise_jac_chains",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:270"),
+    ("B3 Cholesky tile with its inverse on chain stacks", "chol_tile", "chol_tile_inv_chains",
+     "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
+     "gaussian_processes_tpu/ops/blocked_cholesky.py:83", ("mle", "chees", "nuts")),
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
-# and cross-covariances of the matrix-free path, B3 factors its exact ARD fit
+# and cross-covariances of the matrix-free path, B3 factors its exact ARD
+# fit; MLE (one chain) and the samplers evaluate through the chain tables
 PATH_KERNELS = {
     "exact": ("pairwise_k", "pairwise_jac", "pairwise_hess", "chol_tile"),
     "matrix-free": ("pairwise_k", "chol_tile", "kernel_matvec", "kernel_matvec_ard",
                     "kernel_jacvec", "pairwise_ard"),
+    "mle": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
+    "chees": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
+    "nuts": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
 }
 
 
@@ -778,6 +840,275 @@ def check_products_at_slice(check, dev, rows):
     torch.cuda.empty_cache()
 
 
+def chain_problem(dev, dtype, family, chains=CHAINS, n=CHAIN_N):
+    """Config #3's x at ``n`` points, the kernel template, and a (chains,
+    P + 1) table of (kernel params..., s) drawn log-normally (sd 0.3, seed
+    6) around CHAIN_CENTER."""
+    import numpy as np
+    import torch
+    from gaussian_processes_tpu_torch import GaussianKernel, PeriodicKernel
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    dname = str(dtype).split(".")[-1]
+    data = dataclasses.replace(CONFIGS["config3_chees_64"].data, n=n)
+    x = torch.as_tensor(make_data(data, dname)[0], device=dev)
+    cls = GaussianKernel if family == "se" else PeriodicKernel
+    center = np.log(CHAIN_CENTER[family])
+    u = center + 0.3 * np.random.default_rng(6).standard_normal((chains, center.size))
+    template = cls(*([1.0] * (center.size - 1)), dtype=dtype, device=dev)
+    return x, template, torch.as_tensor(np.exp(u), dtype=dtype, device=dev)
+
+
+def check_chain_kernels(check, dev, rows):
+    """Phase 3c: B1 and B2a over a (C, P) parameter table and the batched
+    blocked factor over B3 stacks, at the samplers' shapes (C = 64, N =
+    500), SE and periodic, float32 and float64, against their plain
+    versions; in float32 also timed, with the batched value and gradient
+    that a leapfrog of config #3 evaluates."""
+    import torch
+    from gaussian_processes_tpu_torch.models import gp
+    from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print(f"chain tables and the batched factor vs plain, C={CHAINS}, N={CHAIN_N}:", flush=True)
+    C, n = CHAINS, CHAIN_N
+    n2 = n * n
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for fam, k_ops, j_ops in (("se", SE_K_OPS, SE_JAC_OPS),
+                                  ("periodic", PERIODIC_K_OPS, PERIODIC_JAC_OPS)):
+            x, template, theta = chain_problem(dev, dtype, fam)
+            P = template.n_params
+            params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
+            tag = f"{fam} {C}x{n}^2 {dname}"
+            kern = lambda: pw.pairwise_matrix_chains(template, x, params, diag)  # noqa: E731
+            plain = lambda: pw.pairwise_matrix_chains_reference(template, x, params, diag)  # noqa: E731
+            K, Kr = kern(), plain()
+            err, v = plane_violation(K, Kr, dname)
+            check(f"B1 chain table {tag}", v, 1.0)
+            timed = dtype == torch.float32
+            key = "pairwise_k_chains" + ("" if fam == "se" else "_periodic")
+            if timed:
+                rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
+                             "library_ms": None,
+                             **bound(C * (k_ops * n2 + n), 4 * (n + C * (P + 1) + C * n2))}
+            kern = lambda: pw.pairwise_jacobian_chains(template, x, params)  # noqa: E731
+            plain = lambda: pw.pairwise_jacobian_chains_reference(template, x, params)  # noqa: E731
+            err, v = plane_violation(kern(), plain(), dname)
+            check(f"B2a chain table {tag}", v, 1.0)
+            key = "pairwise_jac_chains" + ("" if fam == "se" else "_periodic")
+            if timed:
+                rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
+                             "library_ms": None,
+                             **bound(C * j_ops * n2, 4 * (n + C * P + C * P * n2))}
+            if fam != "se":
+                continue
+            # the factor of the SE chains' K, a stack of 64 with a ragged last panel
+            # (the forward distance from the plain factor is kappa(K) u, printed)
+            L, Lr = bc.cholesky_blocked(K), bc.cholesky_reference(K)
+            print(f"  cholesky_blocked stack {tag}: distance from plain {rel_fro(L, Lr):.3e}",
+                  flush=True)
+            ratio = backward(L, K) / backward(Lr, K)
+            check(f"cholesky_blocked stack {tag} backward / torch.linalg's", ratio,
+                  BLOCKED_BACKWARD_RATIO)
+            bad = K.clone()
+            bad[CHAIN_NONPD, 300, 300] = -1.0
+            nan = torch.isnan(bc.cholesky_blocked(bad)).flatten(1).any(1)
+            only = bool(nan[CHAIN_NONPD]) and int(nan.sum()) == 1
+            check(f"cholesky_blocked stack {tag}: NaN in the non-PD chain only (0 = yes)",
+                  0.0 if only else 1.0, 0.0)
+            # B3 as the factor's first panel launches it: the chains' first
+            # diagonal tiles, one (64, 128, 128) stack, factor and inverse
+            # (these tiles' condition numbers pass config-1's ~1e4, so the
+            # forward distances from plain, ~kappa u, are printed; the
+            # backward error is held, and the inverse's residual, ~kappa u
+            # as well, against the plain inverse's on the same tiles)
+            tiles = K[:, :128, :128].contiguous()
+            eye = torch.eye(128, dtype=dtype, device=dev)
+            (got, got_inv), (want, want_inv) = bc.chol_tile_inv(tiles), bc.chol_tile_inv_reference(tiles)
+            print(f"  B3 chain stack {tag}: distance from plain, factor {rel_fro(got, want):.3e}, "
+                  f"inverse {rel_fro(got_inv, want_inv):.3e}", flush=True)
+            check(f"B3 chain stack {tag}: backward", backward(got, tiles), CHOL_BACKWARD_TOL[dname])
+            eyes = eye.double().expand(C, 128, 128)
+            ratio = (rel_fro(got_inv.double() @ got.double(), eyes)
+                     / rel_fro(want_inv.double() @ want.double(), eyes))
+            check(f"B3 chain stack {tag}: ||L^-1 L - I|| / the plain inverse's", ratio,
+                  BLOCKED_BACKWARD_RATIO)
+            if not timed:
+                continue
+            rows["chol_tile_inv_chains"] = {
+                "max_abs_err": float(torch.stack((got - want, got_inv - want_inv)).abs().max()),
+                "ms": time_ms(lambda: bc.chol_tile_inv(tiles), 50),
+                "plain_ms": time_ms(lambda: bc.chol_tile_inv_reference(tiles), 50),
+                "library_ms": time_ms(lambda: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky_ex(tiles)[0], eye, upper=False), 50),
+                **bound(C * 2 * 128 ** 3 / 3, 4 * 3 * C * 128 * 128)}
+            rows["cholesky_blocked_chains"] = {
+                "ms": time_ms(lambda: bc.cholesky_blocked(K), 20),
+                "library_ms": time_ms(lambda: torch.linalg.cholesky_ex(K), 20),
+                **bound(C * n ** 3 / 3, 4 * 2 * C * n2)}
+            y = torch.sin(2 * x)
+            vg = lambda: gp.log_marginal_value_and_grad_chains(template, x, y, theta, 1e-6)  # noqa: E731
+            vg()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                vg()
+            torch.cuda.synchronize()
+            rows["value_and_grad_chains"] = {"ms": time_ms(vg, 20),
+                                             "wall_ms": (time.perf_counter() - t0) / 20 * 1e3}
+    for key in ("pairwise_k_chains", "pairwise_k_chains_periodic", "pairwise_jac_chains",
+                "pairwise_jac_chains_periodic", "chol_tile_inv_chains", "cholesky_blocked_chains",
+                "value_and_grad_chains"):
+        r = rows[key]
+        print(f"  {key}: {r['ms']:.4f} ms" + "".join(
+            f", {f} {r[f]:.4f}" for f in ("plain_ms", "library_ms", "bound_ms", "wall_ms")
+            if r.get(f) is not None), flush=True)
+    torch.cuda.empty_cache()
+
+
+def run_sampler_path(dev, path) -> dict:
+    """Phase 4, MLE and the samplers through the CLI as a user runs them:
+    config #2 (periodic MLE, 4 restarts) and config #3 (64 chains, N = 500,
+    ChEES in full, NUTS with NUTS_WARMUP + NUTS_SAMPLES), float32."""
+    from gaussian_processes_tpu_torch import cli
+    from gaussian_processes_tpu_torch.utils import CONFIGS
+
+    if path == "mle":
+        return cli.run_config(CONFIGS["config2_mle_periodic"], device=dev)
+    cfg = CONFIGS[f"config3_{path}_64"]
+    if path == "nuts":
+        cfg = dataclasses.replace(cfg, nuts=dataclasses.replace(
+            cfg.nuts, num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES))
+    return cli.run_config(cfg, device=dev)
+
+
+def plain_lml64_periodic(theta, dev) -> float:
+    """Config #2's log marginal likelihood at theta = (h, w, p, s) in
+    float64, with the plain pairwise version and torch.linalg."""
+    import torch
+    from gaussian_processes_tpu_torch import PeriodicKernel
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    cfg = CONFIGS["config2_mle_periodic"]
+    x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(cfg.data, "float64"))
+    h, w, p, s = theta
+    k = PeriodicKernel(h, w, p, dtype=torch.float64, device=dev)
+    L = torch.linalg.cholesky(pw.pairwise_matrix_reference(k, x, x, noise=s, jitter=cfg.fit.jitter))
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    return float(-0.5 * torch.dot(y, alpha) - torch.log(torch.diagonal(L)).sum()
+                 - 0.5 * x.shape[0] * LOG_2PI)
+
+
+def posterior_means_f64(dev):
+    """Config #3's posterior means of theta = (h, w, s) by quadrature in
+    float64 on a GRID over u = log theta, with the plain pairwise version
+    and torch.linalg (no kernel of the port); and the share of the
+    posterior mass on the grid's faces."""
+    import math
+
+    import torch
+    from gaussian_processes_tpu_torch import GaussianKernel
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    cfg = CONFIGS["config3_chees_64"]
+    x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(cfg.data, "float64"))
+    n = x.shape[0]
+    axes = [torch.linspace(lo, hi, m, dtype=torch.float64) for lo, hi, m in GRID]
+    u_all = torch.cartesian_prod(*axes).to(dev)
+    k = GaussianKernel(1.0, 1.0, dtype=torch.float64, device=dev)
+    log_post = []
+    for u in u_all.split(1024):
+        theta = torch.exp(u)
+        K = pw.pairwise_matrix_chains_reference(k, x, theta[:, :2], theta[:, 2] ** 2 + cfg.fit.jitter)
+        L, info = torch.linalg.cholesky_ex(K)
+        alpha = torch.cholesky_solve(y[None, :, None].expand(u.shape[0], n, 1), L)[..., 0]
+        lml = (-0.5 * (alpha @ y) - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+               - 0.5 * n * math.log(2 * math.pi))
+        lml = torch.where(info == 0, lml, torch.full_like(lml, -math.inf))
+        log_post.append(lml - 0.5 * torch.sum((u / cfg.nuts.prior_std) ** 2, dim=-1))
+    log_post = torch.cat(log_post)
+    w = torch.exp(log_post - log_post.max())
+    w = w / w.sum()
+    mean = (w[:, None] * torch.exp(u_all)).sum(0)
+    W = w.reshape(*(m for _, _, m in GRID))
+    faces = sum(float(W.select(d, i).sum()) for d in range(3) for i in (0, -1))
+    return mean.tolist(), faces
+
+
+def check_sampler_paths(check, runs, dev) -> dict:
+    """Phase 5: config #2's recovered period and noise (the same task in
+    float64 on the card) and the float32 run's optimum; config #3's draws
+    against a float64 quadrature of the posterior, with R-hat, acceptance
+    and divergences."""
+    import torch
+    from gaussian_processes_tpu_torch import PeriodicKernel, cli
+    from gaussian_processes_tpu_torch.inference import fit_mle
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    print("MLE and samplers (float32) on the card:", flush=True)
+    s = runs["mle"]
+    cfg = CONFIGS["config2_mle_periodic"]
+    s64 = cli.run_config(dataclasses.replace(cfg, fit=dataclasses.replace(cfg.fit, dtype="float64")),
+                         device=dev)
+    lml64 = plain_lml64_periodic(s["theta"], dev)
+    x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(cfg.data, "float64"))
+    h, w, p, noise = s["theta"]
+    polished = fit_mle(PeriodicKernel(h, w, p, dtype=torch.float64, device=dev), x, y, noise,
+                       num_steps=cfg.mle.num_steps, jitter=cfg.fit.jitter)
+    print(f"  config #2 float32: {s['mle_wall_s']:.3f} s, theta {[round(t, 5) for t in s['theta']]}, "
+          f"lml {s['log_marginal']:.4f} (in float64 {lml64:.4f}; float64 L-BFGS from there "
+          f"{float(polished.log_marginal):.4f}); float64 run: {s64['mle_wall_s']:.3f} s, theta "
+          f"{[round(t, 5) for t in s64['theta']]}, lml {s64['log_marginal']:.4f}", flush=True)
+    for run, (_, _, p_run, s_run) in (("float64", s64["theta"]), ("float32", s["theta"])):
+        if run == "float64":
+            check(f"config #2 {run} |p - 0.5|", abs(p_run - MLE_P), MLE_P_TOL)
+        check(f"config #2 {run} |s - 0.1|", abs(s_run - MLE_S), MLE_S_TOL)
+    check("config #2 float32 optimum: |lml - lml after float64 L-BFGS from it|, float64 (nats)",
+          abs(float(polished.log_marginal) - lml64), MLE_LML_NATS)
+    summary = {"mle": {key: s[key] for key in ("mle_wall_s", "log_marginal", "theta", "converged")},
+               "mle_float64": {key: s64[key] for key in ("mle_wall_s", "log_marginal", "theta")}}
+    summary["mle"].update(log_marginal_float64=lml64,
+                          polished_float64=float(polished.log_marginal))
+
+    exact, faces = posterior_means_f64(dev)
+    print(f"  config #3 posterior means by float64 quadrature: {[round(m, 5) for m in exact]}",
+          flush=True)
+    check("config #3 quadrature: posterior mass on the grid's faces", faces, GRID_EDGE_MASS)
+    summary["posterior_mean_quadrature"] = exact
+    for path, ref, rhat in (("chees", CHEES_REF, CHEES_RHAT), ("nuts", NUTS_REF, NUTS_RHAT)):
+        s = runs[path]
+        d = s["diagnostics"]
+        print(f"  config #3 {path}: {s['n_samples']} draws x {s['n_chains']} chains in "
+              f"{s['wall_s']:.2f} s ({s['samples_per_s']:.1f} samples/s with warmup), accept "
+              f"{s['accept_rate']:.3f}, divergent {s['divergence_frac']:.4f}, mean leapfrog "
+              f"{s['mean_leapfrog']:.2f}, step {s['step_size']:.4f}, max R-hat {d['max_rhat']:.4f}, "
+              f"min ESS {d['min_ess']:.0f} ({d['ess_per_s']:.1f} ESS/s), mean "
+              f"{[round(m, 4) for m in s['posterior_mean']]} +- "
+              f"{[round(e, 4) for e in s['posterior_mean_se']]}", flush=True)
+        check(f"config #3 {path} draws finite (0 = yes)", 0.0 if s["draws_finite"] else 1.0, 0.0)
+        check(f"config #3 {path} max split R-hat", d["max_rhat"], rhat)
+        se = s["posterior_mean_se"]
+        print(f"  config #3 {path}: |mean - reference| / MC standard error "
+              f"{[round(abs(m - r) / e, 2) for m, r, e in zip(s['posterior_mean'], ref, se)]} "
+              f"against the reference's {list(ref)}", flush=True)
+        for i, name in enumerate(("h", "w", "s")):
+            check(f"config #3 {path} mean {name}: |mean - quadrature| / MC standard error",
+                  abs(s["posterior_mean"][i] - exact[i]) / se[i], SAMPLER_SE)
+        if path == "chees":
+            check("config #3 chees mean acceptance", s["accept_rate"], CHEES_ACCEPT[1])
+            check("config #3 chees mean acceptance (negated)", -s["accept_rate"], -CHEES_ACCEPT[0])
+        else:
+            check("config #3 nuts divergent fraction", s["divergence_frac"], NUTS_DIVERGENT)
+        summary[path] = {key: s[key] for key in (
+            "wall_s", "samples_per_s", "accept_rate", "divergence_frac", "mean_leapfrog",
+            "step_size", "posterior_mean", "posterior_mean_se", "n_samples")}
+        summary[path].update(max_rhat=d["max_rhat"], min_ess=d["min_ess"], ess_per_s=d["ess_per_s"])
+    return summary
+
+
 def run_iterative_path(dev) -> dict:
     """Phase 4, the matrix-free path as a user drives it."""
     import numpy as np
@@ -1078,33 +1409,38 @@ def main() -> int:
     check_ard_pairwise_small(check, dev)
     slice_rows = check_kernels_at_slice(check, dev)
     check_products_at_slice(check, dev, slice_rows)
+    check_chain_kernels(check, dev, slice_rows)
 
     fit_cfg = CONFIGS["config1_fit_se500"].fit
     # each path runs with the counters at 0 and is read just after
-    launches, launches_by_path = {}, {}
+    launches_by_path = {}
     runs = {}
+    path_wall_s = {}
     for path, run in (("exact", lambda: run_main_path(dev)),
-                      ("matrix-free", lambda: run_iterative_path(dev))):
+                      ("matrix-free", lambda: run_iterative_path(dev)),
+                      *((p, lambda p=p: run_sampler_path(dev, p)) for p in ("mle", "chees", "nuts"))):
+        t0 = time.perf_counter()
         _build.launch_counts.clear()
         runs[path] = run()
         counts = dict(_build.launch_counts)
+        path_wall_s[path] = time.perf_counter() - t0
         launches_by_path[path] = counts
-        print(f"launches on the {path} path: {counts}", flush=True)
+        print(f"launches on the {path} path ({path_wall_s[path]:.1f} s): {counts}", flush=True)
         for key in PATH_KERNELS[path]:
             check(f"{key} launched on the {path} path (0 = yes)",
                   0.0 if counts.get(key, 0) > 0 else 1.0, 0.0)
-        for key, c in counts.items():
-            launches[key] = launches.get(key, 0) + c
     out, iter_out = runs["exact"], runs["matrix-free"]
     check_main_path(check, out, fit_cfg.noise, fit_cfg.jitter)
     iter_summary = check_iterative_path(check, iter_out, dev)
+    sampler_summary = check_sampler_paths(check, runs, dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches.get(key, 0),
+         "launches": sum(launches_by_path[p].get(key, 0)
+                         for p in (paths[0] if paths else launches_by_path)),
          **{field: slice_rows[row][field] for field in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-        for name, key, row, source, replaces in KERNEL_ROWS
+        for name, key, row, source, replaces, *paths in KERNEL_ROWS
     ]
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed: {check.failed}",
@@ -1123,9 +1459,14 @@ def main() -> int:
             "kernel_matvec_ard_r1", "kernel_matvec_ard_r64", "pairwise_ard_pivot_column",
             "pairwise_ard_pivot_row", "pairwise_k_pivot_column", "pairwise_k_pivot_row",
             "pairwise_hess_00", "pairwise_hess_11")},
-        "sfu_floor_ms": {row: slice_rows[row]["sfu_floor_ms"] for _, _, row, _, _ in KERNEL_ROWS
+        "sfu_floor_ms": {row: slice_rows[row]["sfu_floor_ms"] for _, _, row, *_ in KERNEL_ROWS
                          if "sfu_floor_ms" in slice_rows[row]},
+        **{key: slice_rows[key] for key in (
+            "pairwise_k_chains_periodic", "pairwise_jac_chains_periodic",
+            "cholesky_blocked_chains", "value_and_grad_chains")},
         "launches_by_path": launches_by_path,
+        "path_wall_s": path_wall_s,
+        "samplers": sampler_summary,
         "strip_matvec_ms": {r: slice_rows[f"strip_matvec_r{r}"]["ms"] for r in (1, 8)},
         "iterative": iter_summary,
     }))

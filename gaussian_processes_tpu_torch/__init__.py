@@ -7,17 +7,23 @@ port is tested against.  This package imports torch and numpy, never JAX.
 
 Layer map:
 
-    models/   GP inference (functional core, reference-parity GP object,
-              the matrix-free iterative_gp: CG solves and SLQ logdet) and
-              kernels (nn.Modules with analytic derivatives; ARD over (n, D))
+    models/   GP inference (functional core with its chain-batched value and
+              gradient, reference-parity GP object, the matrix-free
+              iterative_gp: CG solves and SLQ logdet) and kernels
+              (nn.Modules with analytic derivatives; ARD over (n, D))
+    inference/ type-II MLE (L-BFGS / Adam), the hyperparameter posterior
+              builders, NUTS and ChEES-HMC over many chains in lockstep,
+              warmup adaptation, R-hat / ESS diagnostics
     ops/      hand-written CUDA kernels for sm_90a (csrc/) with their plain
-              PyTorch twins: pairwise K / dK / d2K (B1, B2), the Cholesky
-              tile (B3) under a left-looking blocked factorization, the
+              PyTorch twins: pairwise K / dK / d2K (B1, B2; K and dK also
+              over a table of chains' parameters), the Cholesky tile (B3)
+              under a left-looking blocked factorization (one matrix or a
+              stack), the
               fused kernel matvec and Jacobian product (B4, B5) under the
               Krylov solvers (krylov), the ARD K builder (B6)
     utils/    device and precision policy, config, metrics, profiling
     convert   JAX-package values (as numpy) -> port objects
-    cli       the fit workload end to end
+    cli       the fit, mle, nuts and chees workloads end to end
 
 Everything runs where its input tensors live: the CUDA kernels for tensors
 on the card, the plain PyTorch versions for tensors on the CPU.
@@ -49,6 +55,7 @@ from gaussian_processes_tpu_torch.models.gp import (  # noqa: E402
     log_marginal_hessian,
     log_marginal_likelihood,
     log_marginal_value_and_grad,
+    log_marginal_value_and_grad_chains,
     log_predictive_density,
     loo_predictive,
     predict,
@@ -82,6 +89,7 @@ __all__ = [
     "log_predictive_density",
     "log_marginal_likelihood",
     "log_marginal_value_and_grad",
+    "log_marginal_value_and_grad_chains",
     "log_marginal_hessian",
     "log_marginal_all",
     "likelihood_value_grad_hessian",

@@ -3,14 +3,20 @@
 Usage:
     python -m gaussian_processes_tpu_torch.cli config1_fit_se500 --device cuda
     python -m gaussian_processes_tpu_torch.cli config1_fit_se500 --n 16384 --device cuda
+    python -m gaussian_processes_tpu_torch.cli config2_mle_periodic
+    python -m gaussian_processes_tpu_torch.cli config3_chees_64 --device cuda
+    python -m gaussian_processes_tpu_torch.cli config3_nuts_64 --num-samples 200
     python -m gaussian_processes_tpu_torch.cli --list
 
-Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the ``fit``
-task (BASELINE config #1's path: build K, factor, solve, predict); the other
-tasks are listed and raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.  Each run emits JSONL metrics (utils/metrics.py) and an
+Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
+``fit`` (BASELINE config #1: build K, factor, solve, predict), ``mle``
+(config #2: type-II MLE with restarts), ``nuts`` and ``chees`` tasks
+(config #3: the hyperparameter posterior sampled over many chains); the
+other tasks are listed and raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.  Every task runs on ``cuda`` unless another device is
+asked for.  Each run emits JSONL metrics (utils/metrics.py) and an
 end-of-run summary line; ``--profile-dir`` writes a ``torch.profiler``
-trace of the timed fits.
+trace of the timed part.
 """
 
 from __future__ import annotations
@@ -18,15 +24,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
+import time
 
 import numpy as np
 import torch
 
 #: tasks of the JAX package's CLI that the port does not run yet
 NOT_PORTED = {
-    "mle": "A5 (type-II MLE)",
-    "nuts": "A6 (samplers)",
-    "chees": "A6 (samplers)",
     "nuts_multihost": "slice 5 (multi-device)",
     "fit_large": "slice 5 (multi-device)",
     "bayes_grid": "slice 3 (structured grids)",
@@ -35,32 +39,131 @@ NOT_PORTED = {
 
 
 def _apply_overrides(cfg, args):
+    nuts = cfg.nuts
+    if args.num_samples is not None:
+        nuts = dataclasses.replace(nuts, num_samples=args.num_samples)
+    if args.num_warmup is not None:
+        nuts = dataclasses.replace(nuts, num_warmup=args.num_warmup)
+    if args.n_chains is not None:
+        nuts = dataclasses.replace(nuts, n_chains=args.n_chains)
     data = cfg.data
     if args.n is not None:
         data = dataclasses.replace(data, n=args.n)
     return dataclasses.replace(
-        cfg, data=data, metrics_path=args.metrics, profile_dir=args.profile_dir,
+        cfg, nuts=nuts, data=data, metrics_path=args.metrics, profile_dir=args.profile_dir,
     )
+
+
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_fit(cfg, kernel, x, y, xo, device, device_name):
+    from gaussian_processes_tpu_torch import fit, predict_diag
+    from gaussian_processes_tpu_torch.utils import roofline, timed, trace
+
+    def fit_fn(k, x, y):
+        return fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
+
+    with trace(cfg.profile_dir):
+        wall = timed(fit_fn, kernel, x, y, device=device)
+    post = fit_fn(kernel, x, y)
+    mean, var = predict_diag(post, xo)
+    truth = np.sin(cfg.data.freq * xo.cpu().numpy())
+    rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2)))
+    summary = {"fit_wall_s": wall, "log_marginal": float(post.log_marginal),
+               "pred_rmse_vs_truth": rmse, "pred_var_min": float(var.min())}
+    if device.type == "cuda":
+        summary.update(roofline(cfg.data.n, wall, cfg.fit.dtype, device_name))
+    return summary
+
+
+def _run_mle(cfg, kernel, x, y, device):
+    from gaussian_processes_tpu_torch.inference import fit_mle_restarts
+    from gaussian_processes_tpu_torch.utils import trace
+
+    # the restarts' starting points come from a generator on the CPU, so a
+    # seed starts the same restarts on any device and in either dtype
+    generator = torch.Generator().manual_seed(cfg.data.seed)
+    _synchronize(device)
+    t0 = time.perf_counter()
+    with trace(cfg.profile_dir):
+        res = fit_mle_restarts(
+            kernel, x, y, cfg.fit.noise, generator, n_restarts=cfg.mle.n_restarts,
+            num_steps=cfg.mle.num_steps, method=cfg.mle.method,
+            learning_rate=cfg.mle.learning_rate, jitter=cfg.fit.jitter,
+        )
+        _synchronize(device)
+    return {
+        "mle_wall_s": time.perf_counter() - t0,
+        "log_marginal": float(res.log_marginal),
+        "theta": torch.exp(res.u).tolist(),
+        "converged": bool(res.converged),
+    }
+
+
+def _run_sampler(cfg, kernel, x, y, device, dtype):
+    from gaussian_processes_tpu_torch.inference import (
+        init_positions,
+        make_log_posterior,
+        sample_chees,
+        sample_nuts,
+    )
+    from gaussian_processes_tpu_torch.inference.diagnostics import ess, summarize
+    from gaussian_processes_tpu_torch.utils import summarize_nuts, trace
+
+    ncfg = cfg.nuts
+    log_post = make_log_posterior(kernel, x, y, prior_std=ncfg.prior_std,
+                                  jitter=cfg.fit.jitter)
+    generator = torch.Generator(device=device).manual_seed(ncfg.seed)
+    init = init_positions(kernel, cfg.fit.noise, generator, n_chains=ncfg.n_chains,
+                          spread=0.2, dtype=dtype)
+    _synchronize(device)
+    t0 = time.perf_counter()
+    with trace(cfg.profile_dir):
+        if cfg.task == "chees":
+            res = sample_chees(log_post, init, generator, num_warmup=ncfg.num_warmup,
+                               num_samples=ncfg.num_samples,
+                               init_step_size=ncfg.init_step_size)
+        else:
+            res = sample_nuts(log_post, init, generator, num_warmup=ncfg.num_warmup,
+                              num_samples=ncfg.num_samples, max_depth=ncfg.max_depth,
+                              target_accept=ncfg.target_accept,
+                              init_step_size=ncfg.init_step_size)
+        _synchronize(device)
+    wall = time.perf_counter() - t0
+    positions = res.positions.detach().cpu().double().numpy()
+    theta = np.exp(positions)
+    draws = theta.reshape(-1, positions.shape[-1])
+    summary = summarize_nuts(res)
+    summary.update(
+        wall_s=wall,
+        samples_per_s=ncfg.num_samples * ncfg.n_chains / wall,
+        draws_finite=bool(np.isfinite(positions).all()),
+        posterior_mean=draws.mean(0).tolist(),
+        posterior_sd=draws.std(0).tolist(),
+        # Monte-Carlo standard error of posterior_mean: sd / sqrt(ESS of theta)
+        posterior_mean_se=(draws.std(0) / np.sqrt(ess(theta))).tolist(),
+        diagnostics=summarize(positions, wall_s=wall),
+    )
+    return summary
 
 
 def run_config(cfg, device="cuda") -> dict:
     """Run one workload on ``device`` and return its summary."""
-    from gaussian_processes_tpu_torch import fit, predict_diag
     from gaussian_processes_tpu_torch.utils import (
         MetricsLogger,
         make_data,
         make_kernel,
         resolve_device,
-        roofline,
-        timed,
-        trace,
     )
 
     if cfg.task in NOT_PORTED:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP {NOT_PORTED[cfg.task]})"
         )
-    if cfg.task != "fit":
+    if cfg.task not in ("fit", "mle", "nuts", "chees"):
         raise ValueError(f"unknown task {cfg.task!r}")
 
     device = resolve_device(device)
@@ -74,21 +177,13 @@ def run_config(cfg, device="cuda") -> dict:
     log.log("start", config=cfg.name, task=cfg.task, n=cfg.data.n,
             device=device_name, dtype=cfg.fit.dtype)
 
-    def fit_fn(k, x, y):
-        return fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
-
-    with trace(cfg.profile_dir):
-        wall = timed(fit_fn, kernel, x, y, device=device)
-    post = fit_fn(kernel, x, y)
-    mean, var = predict_diag(post, xo)
-    truth = np.sin(cfg.data.freq * xo.cpu().numpy())
-    rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2)))
-    summary = {"device": device_name, "fit_wall_s": wall,
-               "log_marginal": float(post.log_marginal),
-               "pred_rmse_vs_truth": rmse,
-               "pred_var_min": float(var.min())}
-    if device.type == "cuda":
-        summary.update(roofline(cfg.data.n, wall, cfg.fit.dtype, device_name))
+    if cfg.task == "fit":
+        summary = _run_fit(cfg, kernel, x, y, xo, device, device_name)
+    elif cfg.task == "mle":
+        summary = _run_mle(cfg, kernel, x, y, device)
+    else:
+        summary = _run_sampler(cfg, kernel, x, y, device, dtype)
+    summary = {"device": device_name, **summary}
 
     log.log("summary", config=cfg.name, **summary)
     log.close()
@@ -103,6 +198,9 @@ def main(argv=None):
     ap.add_argument("--list", action="store_true", help="list configs")
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--n", type=int, default=None, help="override the data size")
+    ap.add_argument("--n-chains", type=int, default=None, help="override the chain count")
+    ap.add_argument("--num-warmup", type=int, default=None, help="override the warmup steps")
+    ap.add_argument("--num-samples", type=int, default=None, help="override the draws")
     ap.add_argument("--metrics", default=None, help="JSONL metrics file")
     ap.add_argument("--profile-dir", default=None, help="torch.profiler trace dir")
     args = ap.parse_args(argv)

@@ -32,6 +32,13 @@
 // values of a plane's row go out as one 16-byte store (per element where
 // m % C != 0 leaves rows unaligned).  The forms keep the accurate expf /
 // sinf.
+//
+// Chains: the samplers evaluate C parameter vectors at once (the JAX
+// package vmaps the Pallas calls).  B1 and B2a take a (C, stride) parameter
+// table in one launch, chain c = blockIdx.z reading its row and writing its
+// own output at c times the output's size; every chain shares x.  The work
+// and the bound are C times one matrix's, and at the samplers' N=500 one
+// matrix alone (1 MB) would fill a few dozen blocks of the card.
 
 #include <algorithm>
 #include <cstddef>
@@ -52,13 +59,18 @@ constexpr int kDerivThreads = 32 * kDerivWarps;                 // B2: threads p
 constexpr int kDerivRowsPerWarp = 4;                            // B2: rows each thread walks
 constexpr int kDerivRows = kDerivWarps * kDerivRowsPerWarp;     // B2: rows per block
 
+// chain c = blockIdx.z reads row c of the parameter table (params + c *
+// stride: P kernel parameters, then the diagonal term) and writes the c-th
+// (n, m) matrix; one matrix is the case gridDim.z = 1
 template <typename T, typename Form>
 __global__ void __launch_bounds__(kCols)
 pairwise_k_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
                   const T* __restrict__ params, T* __restrict__ out,
-                  int n, int m, int with_diag) {
+                  int n, int m, int with_diag, int stride) {
   const int col = blockIdx.x * kCols + threadIdx.x;
   if (col >= m) return;
+  params += static_cast<size_t>(blockIdx.z) * stride;
+  out += static_cast<size_t>(blockIdx.z) * n * m;
   T th[Form::P];
 #pragma unroll
   for (int q = 0; q < Form::P; ++q) th[q] = params[q];
@@ -120,13 +132,20 @@ struct PlaneEval {  // B2b: one plane, one closed form
 // out[k][i][j] = val_src(k)(x1_i - x2_j), k < kPlanes.  One block per SM as
 // the launch bound's floor: without it ptxas caps the registers and spills
 // (float64's one-plane instantiations)
+// Chain c = blockIdx.z reads row c of the parameter table (params + c *
+// stride) and writes its kPlanes planes at out + c * kPlanes * n * m; the
+// offset keeps a plane's rows 16-byte aligned whenever m % C == 0.
 template <typename T, typename Eval>
 __global__ void __launch_bounds__(kDerivThreads, 1)
 pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                      const T* __restrict__ params, T* __restrict__ out, int n, int m) {
+                      const T* __restrict__ params, T* __restrict__ out, int n, int m,
+                      int stride) {
   constexpr int C = vec_elems<T>();
   constexpr int kV = Eval::kVals;
   __shared__ T xr[kDerivRows];
+  const size_t plane = static_cast<size_t>(n) * m;
+  params += static_cast<size_t>(blockIdx.z) * stride;
+  out += static_cast<size_t>(blockIdx.z) * Eval::kPlanes * plane;
   const Eval ev(params);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -136,7 +155,6 @@ pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   for (int c = 0; c < C; ++c) xc[c] = x2[min(col0 + c, m - 1)];
   const int valid = m - col0;
   const bool vec = m % C == 0;
-  const size_t plane = static_cast<size_t>(n) * m;
   for (int rb = blockIdx.y; rb * kDerivRows < n; rb += gridDim.y) {
     const int row_base = rb * kDerivRows;
     __syncthreads();  // every thread is done with the previous rows
@@ -163,75 +181,17 @@ pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   }
 }
 
-dim3 grid_for(int n, int m) {
+dim3 grid_for(int n, int m, int chains) {
   const int gx = (m + kCols - 1) / kCols;
   const int gy = std::min((n + kRows - 1) / kRows, kMaxGridY);
-  return dim3(gx, gy);
+  return dim3(gx, gy, chains);
 }
 
 template <typename T>
-int launch_k(const T* x1, const T* x2, const T* params, T* out, int n, int m,
-             int family, int with_diag, cudaStream_t stream) {
-  if (n <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = grid_for(n, m);
-  switch (family) {
-    case gp::kSE:
-      pairwise_k_kernel<T, gp::SEForm<T>><<<grid, kCols, 0, stream>>>(
-          x1, x2, params, out, n, m, with_diag);
-      break;
-    case gp::kPeriodic:
-      pairwise_k_kernel<T, gp::PeriodicForm<T>><<<grid, kCols, 0, stream>>>(
-          x1, x2, params, out, n, m, with_diag);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename Eval>
-int launch_deriv_eval(const T* x1, const T* x2, const T* params, T* out, int n, int m,
-                      cudaStream_t stream) {
-  constexpr int C = vec_elems<T>();
-  const dim3 grid((m + 32 * C - 1) / (32 * C),
-                  std::min((n + kDerivRows - 1) / kDerivRows, kMaxGridY));
-  pairwise_deriv_kernel<T, Eval><<<grid, kDerivThreads, 0, stream>>>(x1, x2, params, out, n, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// one Hessian plane: the upper-triangle value V, for V = 0 .. Vals - 1
-template <typename T, typename Form, int V, int Vals>
-int launch_hess_value(const T* x1, const T* x2, const T* params, T* out, int n, int m,
-                      int value, cudaStream_t stream) {
-  if constexpr (V < Vals) {
-    if (value == V) {
-      return launch_deriv_eval<T, PlaneEval<T, typename Form::template HessValue<V>>>(
-          x1, x2, params, out, n, m, stream);
-    }
-    return launch_hess_value<T, Form, V + 1, Vals>(x1, x2, params, out, n, m, value, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// order 1: the Jacobian; order 2 and value < 0: every Hessian plane; order 2
-// and value >= 0: the plane of that upper-triangle value
-template <typename T, typename Form>
-int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out, int n, int m,
-                      int order, int value, cudaStream_t stream) {
-  if (order == 1) {
-    return launch_deriv_eval<T, FormEval<T, Form, 1>>(x1, x2, params, out, n, m, stream);
-  }
-  if (value < 0) {
-    return launch_deriv_eval<T, FormEval<T, Form, 2>>(x1, x2, params, out, n, m, stream);
-  }
-  return launch_hess_value<T, Form, 0, FormEval<T, Form, 2>::kVals>(x1, x2, params, out, n, m,
-                                                                     value, stream);
-}
-
-template <typename T>
-int launch_deriv(int device, const void* x1, const void* x2, const void* params, void* out,
-                 int n, int m, int family, int order, int value, void* stream) {
-  if (n <= 0 || m <= 0 || (order != 1 && order != 2) || (order == 1 && value >= 0)) {
+int launch_k(int device, const void* x1, const void* x2, const void* params, void* out,
+             int n, int m, int chains, int stride, int family, int with_diag,
+             void* stream) {
+  if (n <= 0 || m <= 0 || chains <= 0 || chains > kMaxGridY || stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
@@ -241,11 +201,89 @@ int launch_deriv(int device, const void* x1, const void* x2, const void* params,
   const T* th = static_cast<const T*>(params);
   T* o = static_cast<T*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid_for(n, m, chains);
   switch (family) {
     case gp::kSE:
-      return launch_deriv_form<T, gp::SEForm<T>>(a, b, th, o, n, m, order, value, st);
+      pairwise_k_kernel<T, gp::SEForm<T>><<<grid, kCols, 0, st>>>(
+          a, b, th, o, n, m, with_diag, stride);
+      break;
     case gp::kPeriodic:
-      return launch_deriv_form<T, gp::PeriodicForm<T>>(a, b, th, o, n, m, order, value, st);
+      pairwise_k_kernel<T, gp::PeriodicForm<T>><<<grid, kCols, 0, st>>>(
+          a, b, th, o, n, m, with_diag, stride);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the launch geometry of B2: `chains` parameter rows `stride` apart (the
+// Hessian's callers pass one row)
+struct DerivLaunch {
+  int n, m, chains, stride;
+  cudaStream_t stream;
+};
+
+template <typename T, typename Eval>
+int launch_deriv_eval(const T* x1, const T* x2, const T* params, T* out,
+                      const DerivLaunch& g) {
+  constexpr int C = vec_elems<T>();
+  const dim3 grid((g.m + 32 * C - 1) / (32 * C),
+                  std::min((g.n + kDerivRows - 1) / kDerivRows, kMaxGridY), g.chains);
+  pairwise_deriv_kernel<T, Eval><<<grid, kDerivThreads, 0, g.stream>>>(
+      x1, x2, params, out, g.n, g.m, g.stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one Hessian plane: the upper-triangle value V, for V = 0 .. Vals - 1
+template <typename T, typename Form, int V, int Vals>
+int launch_hess_value(const T* x1, const T* x2, const T* params, T* out, int value,
+                      const DerivLaunch& g) {
+  if constexpr (V < Vals) {
+    if (value == V) {
+      return launch_deriv_eval<T, PlaneEval<T, typename Form::template HessValue<V>>>(
+          x1, x2, params, out, g);
+    }
+    return launch_hess_value<T, Form, V + 1, Vals>(x1, x2, params, out, value, g);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// order 1: the Jacobian; order 2 and value < 0: every Hessian plane; order 2
+// and value >= 0: the plane of that upper-triangle value
+template <typename T, typename Form>
+int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out, int order,
+                      int value, const DerivLaunch& g) {
+  if (order == 1) {
+    return launch_deriv_eval<T, FormEval<T, Form, 1>>(x1, x2, params, out, g);
+  }
+  if (value < 0) {
+    return launch_deriv_eval<T, FormEval<T, Form, 2>>(x1, x2, params, out, g);
+  }
+  return launch_hess_value<T, Form, 0, FormEval<T, Form, 2>::kVals>(x1, x2, params, out,
+                                                                     value, g);
+}
+
+template <typename T>
+int launch_deriv(int device, const void* x1, const void* x2, const void* params, void* out,
+                 int n, int m, int chains, int stride, int family, int order, int value,
+                 void* stream) {
+  if (n <= 0 || m <= 0 || chains <= 0 || chains > kMaxGridY || stride < 0 ||
+      (order != 1 && order != 2) || (order == 1 && value >= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* a = static_cast<const T*>(x1);
+  const T* b = static_cast<const T*>(x2);
+  const T* th = static_cast<const T*>(params);
+  T* o = static_cast<T*>(out);
+  const DerivLaunch g{n, m, chains, stride, static_cast<cudaStream_t>(stream)};
+  switch (family) {
+    case gp::kSE:
+      return launch_deriv_form<T, gp::SEForm<T>>(a, b, th, o, order, value, g);
+    case gp::kPeriodic:
+      return launch_deriv_form<T, gp::PeriodicForm<T>>(a, b, th, o, order, value, g);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -261,25 +299,30 @@ extern "C" {
 int gp_pairwise_k_f32(int device, const void* x1, const void* x2,
                       const void* params, void* out, int n, int m, int family,
                       int with_diag, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_k<float>(static_cast<const float*>(x1),
-                         static_cast<const float*>(x2),
-                         static_cast<const float*>(params),
-                         static_cast<float*>(out), n, m, family, with_diag,
-                         static_cast<cudaStream_t>(stream));
+  return launch_k<float>(device, x1, x2, params, out, n, m, 1, 0, family, with_diag, stream);
 }
 
 int gp_pairwise_k_f64(int device, const void* x1, const void* x2,
                       const void* params, void* out, int n, int m, int family,
                       int with_diag, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_k<double>(static_cast<const double*>(x1),
-                          static_cast<const double*>(x2),
-                          static_cast<const double*>(params),
-                          static_cast<double*>(out), n, m, family, with_diag,
-                          static_cast<cudaStream_t>(stream));
+  return launch_k<double>(device, x1, x2, params, out, n, m, 1, 0, family, with_diag, stream);
+}
+
+// B1 over a (chains, stride) parameter table, one launch: row c holds chain
+// c's P kernel parameters and, with `with_diag`, its diagonal term s_c^2 +
+// jitter at column P; out is (chains, n, m)
+int gp_pairwise_k_chains_f32(int device, const void* x1, const void* x2, const void* table,
+                             void* out, int n, int m, int chains, int stride, int family,
+                             int with_diag, void* stream) {
+  return launch_k<float>(device, x1, x2, table, out, n, m, chains, stride, family, with_diag,
+                         stream);
+}
+
+int gp_pairwise_k_chains_f64(int device, const void* x1, const void* x2, const void* table,
+                             void* out, int n, int m, int chains, int stride, int family,
+                             int with_diag, void* stream) {
+  return launch_k<double>(device, x1, x2, table, out, n, m, chains, stride, family, with_diag,
+                          stream);
 }
 
 // order 1: dK/dtheta, (P, n, m); order 2: `value` < 0 gives every plane of
@@ -288,13 +331,31 @@ int gp_pairwise_k_f64(int device, const void* x1, const void* x2,
 int gp_pairwise_deriv_f32(int device, const void* x1, const void* x2, const void* params,
                           void* out, int n, int m, int family, int order, int value,
                           void* stream) {
-  return launch_deriv<float>(device, x1, x2, params, out, n, m, family, order, value, stream);
+  return launch_deriv<float>(device, x1, x2, params, out, n, m, 1, 0, family, order, value,
+                             stream);
 }
 
 int gp_pairwise_deriv_f64(int device, const void* x1, const void* x2, const void* params,
                           void* out, int n, int m, int family, int order, int value,
                           void* stream) {
-  return launch_deriv<double>(device, x1, x2, params, out, n, m, family, order, value, stream);
+  return launch_deriv<double>(device, x1, x2, params, out, n, m, 1, 0, family, order, value,
+                              stream);
+}
+
+// B2a over the same table, one launch: chain c's dK/dtheta from the first P
+// columns of row c; out is (chains, P, n, m)
+int gp_pairwise_jac_chains_f32(int device, const void* x1, const void* x2, const void* table,
+                               void* out, int n, int m, int chains, int stride, int family,
+                               void* stream) {
+  return launch_deriv<float>(device, x1, x2, table, out, n, m, chains, stride, family, 1, -1,
+                             stream);
+}
+
+int gp_pairwise_jac_chains_f64(int device, const void* x1, const void* x2, const void* table,
+                               void* out, int n, int m, int chains, int stride, int family,
+                               void* stream) {
+  return launch_deriv<double>(device, x1, x2, table, out, n, m, chains, stride, family, 1, -1,
+                              stream);
 }
 
 }  // extern "C"

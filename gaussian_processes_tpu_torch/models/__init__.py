@@ -14,6 +14,7 @@ from gaussian_processes_tpu_torch.models.gp import (
     log_marginal_hessian,
     log_marginal_likelihood,
     log_marginal_value_and_grad,
+    log_marginal_value_and_grad_chains,
     log_predictive_density,
     loo_predictive,
     predict,
@@ -42,6 +43,7 @@ __all__ = [
     "log_predictive_density",
     "log_marginal_likelihood",
     "log_marginal_value_and_grad",
+    "log_marginal_value_and_grad_chains",
     "log_marginal_hessian",
     "log_marginal_all",
     "likelihood_value_grad_hessian",

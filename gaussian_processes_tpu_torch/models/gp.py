@@ -42,7 +42,12 @@ from gaussian_processes_tpu_torch.ops.blocked_cholesky import (
     choose_cholesky,
     choose_solve,
 )
-from gaussian_processes_tpu_torch.ops.pairwise import pairwise_matrix, pairwise_matrix_ard
+from gaussian_processes_tpu_torch.ops.pairwise import (
+    pairwise_jacobian_chains,
+    pairwise_matrix,
+    pairwise_matrix_ard,
+    pairwise_matrix_chains,
+)
 
 _LOG_2PI = 1.8378770664093453
 
@@ -369,6 +374,47 @@ def log_marginal_value_and_grad(kernel: Kernel, x, y, noise, jitter=0.0):
     x, y, noise = _inputs(x, y, noise)
     alpha, lml, inv_K, J = _grad_pieces(kernel, x, y, noise, jitter)
     return lml, _grad_from_pieces(alpha, inv_K, J)
+
+
+def log_marginal_value_and_grad_chains(kernel_template: Kernel, x, y, theta, jitter=0.0):
+    """``log_marginal_value_and_grad`` for C parameter vectors at once.
+
+    ``theta`` is (C, P + 1), each row (kernel params..., s) in
+    ``kernel_template``'s order; returns lml (C,) and d lml / d theta
+    (C, P + 1).  The chains share x and y.  On a card the C matrices K_c
+    come from one launch of kernel B1 over the (C, P + 1) table [params,
+    s^2 + jitter], their factors from the blocked factorization over B3 on
+    (C, 128, 128) stacks, and the C Jacobians from one launch of B2a; the
+    solves and contractions are batched library calls.  The noise component
+    uses dK/ds = 2 s I without building that plane:
+    d lml / ds = s (alpha^T alpha - tr K^-1).  A chain whose K is not
+    positive definite gets NaN in its own outputs only.
+    """
+    x = torch.as_tensor(x)
+    y = _like(y, x)
+    theta = _like(theta, x)
+    P = kernel_template.n_params
+    if theta.ndim != 2 or theta.shape[1] != P + 1:
+        raise ValueError(f"theta must be (C, {P + 1}), got {tuple(theta.shape)}")
+    C, n = theta.shape[0], x.shape[0]
+    params, s = theta[:, :P], theta[:, P]
+    K = pairwise_matrix_chains(kernel_template, x, params, torch.square(s) + jitter)
+    L = choose_cholesky(K)(K)
+    del K
+    v = torch.linalg.solve_triangular(L, y[None, :, None].expand(C, n, 1), upper=False)
+    alpha = torch.linalg.solve_triangular(L.mT, v, upper=True)[..., 0]      # (C, n)
+    logdet_half = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    lml = -0.5 * (alpha @ y) - logdet_half - 0.5 * n * _LOG_2PI
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    inv_L = torch.linalg.solve_triangular(L, eye.expand(C, n, n), upper=False)
+    del L
+    inv_K = inv_L.mT @ inv_L
+    del inv_L
+    J = pairwise_jacobian_chains(kernel_template, x, params)                 # (C, P, n, n)
+    quad = torch.einsum("ci,cpij,cj->cp", alpha, J, alpha)
+    trace = torch.einsum("cij,cpji->cp", inv_K, J)
+    g_s = s * (torch.sum(alpha * alpha, dim=-1) - torch.diagonal(inv_K, dim1=-2, dim2=-1).sum(-1))
+    return lml, torch.cat([0.5 * (quad - trace), g_s[:, None]], dim=1)
 
 
 def log_marginal_hessian(kernel: Kernel, x, y, noise, jitter=0.0):

@@ -23,8 +23,12 @@ from gaussian_processes_tpu_torch.ops.pairwise import (
     pairwise_hessian,
     pairwise_hessian_reference,
     pairwise_jacobian,
+    pairwise_jacobian_chains,
+    pairwise_jacobian_chains_reference,
     pairwise_jacobian_reference,
     pairwise_matrix,
+    pairwise_matrix_chains,
+    pairwise_matrix_chains_reference,
     pairwise_matrix_reference,
 )
 
@@ -45,7 +49,11 @@ __all__ = [
     "pairwise_hessian",
     "pairwise_hessian_reference",
     "pairwise_jacobian",
+    "pairwise_jacobian_chains",
+    "pairwise_jacobian_chains_reference",
     "pairwise_jacobian_reference",
     "pairwise_matrix",
+    "pairwise_matrix_chains",
+    "pairwise_matrix_chains_reference",
     "pairwise_matrix_reference",
 ]

@@ -9,7 +9,10 @@ factorization.  Per panel k (row offset r = 128 k):
     L_kk, L_kk^-1 = chol(strip[:128])                       (B3 tile)
     L[r+128:, k-strip] = strip[128:] @ L_kk^-T              (GEMM)
 
-The factor lives in one buffer and each column strip is written once.  B3
+A (C, n, n) stack (the samplers' C chains) runs the same panels with
+batched GEMMs and one B3 launch per panel on the (C, 128, 128) stack of
+diagonal tiles.  The factor lives in one buffer and each column strip is
+written once.  B3
 returns the tile's inverse beside its factor (``chol_tile_inv``), so a panel
 takes no separate triangular inverse; the GEMMs stay with PyTorch (cuBLAS),
 as the JAX package leaves them to XLA; float32 products run in full float32
@@ -121,32 +124,40 @@ def _round_up(n: int, m: int) -> int:
 
 
 def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of SPD ``A`` (n, n), left-looking over 128-wide
-    panels with ``chol_tile`` as the base.  The strict upper triangle is
-    exactly zero."""
-    if A.ndim != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"cholesky_blocked takes a square matrix, got {tuple(A.shape)}")
-    n = A.shape[0]
+    """Lower Cholesky factor of SPD ``A``, (n, n) or a (C, n, n) stack (the
+    samplers' per-chain matrices), left-looking over 128-wide panels with
+    ``chol_tile`` as the base.  The strict upper triangle is exactly zero.
+
+    A stack runs the same panels on every matrix at once: the panel update
+    is one ``baddbmm``, the diagonal tiles one B3 launch on the (C, 128, 128)
+    stack, the off-diagonal solve one batched product with the stacked
+    inverses.  A matrix that is not positive definite gives NaN in its own
+    factor (from its failed tile on), and no other matrix of the stack is
+    touched."""
+    if A.ndim not in (2, 3) or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"cholesky_blocked takes a square matrix or a stack of them, "
+                         f"got {tuple(A.shape)}")
+    n = A.shape[-1]
     n_pad = _round_up(max(n, TILE), TILE)
     if n_pad != n:
-        padded = A.new_zeros((n_pad, n_pad))
-        padded[:n, :n] = A
-        padded[n:, n:].diagonal().fill_(1.0)
+        padded = A.new_zeros(A.shape[:-2] + (n_pad, n_pad))
+        padded[..., :n, :n] = A
+        padded[..., n:, n:].diagonal(dim1=-2, dim2=-1).fill_(1.0)
         A = padded
+    # strip - L[r:, :r] @ L[r:r+TILE, :r]^T in one GEMM (one batched GEMM)
+    update = torch.addmm if A.ndim == 2 else torch.baddbmm
     out = torch.zeros_like(A)
     nb = n_pad // TILE
     for k in range(nb):
         r = k * TILE
-        strip = A[r:, r : r + TILE]
+        strip = A[..., r:, r : r + TILE]
         if k > 0:
-            # strip - L[r:, :r] @ L[r:r+TILE, :r]^T in one GEMM
-            strip = torch.addmm(strip, out[r:, :r], out[r : r + TILE, :r].T,
-                                alpha=-1.0)
-        Lkk, inv_Lkk = chol_tile_inv(strip[:TILE].contiguous())
-        out[r : r + TILE, r : r + TILE] = Lkk
+            strip = update(strip, out[..., r:, :r], out[..., r : r + TILE, :r].mT, alpha=-1.0)
+        Lkk, inv_Lkk = chol_tile_inv(strip[..., :TILE, :].contiguous())
+        out[..., r : r + TILE, r : r + TILE] = Lkk
         if k + 1 < nb:
-            out[r + TILE :, r : r + TILE] = strip[TILE:] @ inv_Lkk.T
-    return out if n_pad == n else out[:n, :n].contiguous()
+            out[..., r + TILE :, r : r + TILE] = strip[..., TILE:, :] @ inv_Lkk.mT
+    return out if n_pad == n else out[..., :n, :n].contiguous()
 
 
 # ---------------------------------------------------------------------------

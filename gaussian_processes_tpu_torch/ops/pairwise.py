@@ -10,6 +10,10 @@ it; for tensors on a CUDA card it launches the hand-written kernel of
 * ``pairwise_matrix`` (B1) replaces ``_tile_body``: K[i, j] = k(x1_i - x2_j)
   with an optional (s^2 + jitter) on the global diagonal, written once.
 * ``pairwise_jacobian`` (B2a) replaces ``_jac_tile_body``: (P, n, m).
+* ``pairwise_matrix_chains`` and ``pairwise_jacobian_chains`` are B1 and
+  B2a over a (C, P) table of C chains' parameters, one launch each: the
+  counterpart of the JAX package's ``vmap`` of those Pallas calls over the
+  samplers' chains.
 * ``pairwise_hessian`` (B2b) replaces ``_hess_tile_body``: (P, P, n, m)
   filled symmetrically from the upper triangle, or one (n, m) plane when a
   ``pair`` is given, which evaluates that value's closed form alone
@@ -228,6 +232,114 @@ def pairwise_hessian_reference(kernel, x1, x2, *, pair=None) -> torch.Tensor:
         return tri[tri_index(pair[0], pair[1], P)]
     return torch.stack([tri[tri_index(p, q, P)] for p in range(P) for q in range(P)]
                        ).reshape(P, P, x1.shape[0], x2.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2a over a chain dimension: one launch for C parameter vectors
+# ---------------------------------------------------------------------------
+
+
+def _chain_params(kernel_template, x, params):
+    """``params`` as a (C, P) tensor in x's dtype and device whose rows may
+    be a view with any row stride (the kernels take the stride)."""
+    params = torch.as_tensor(params, device=x.device)
+    if params.dtype != x.dtype:
+        params = params.to(x.dtype)
+    P = kernel_template.n_params
+    if params.ndim != 2 or params.shape[1] != P:
+        raise ValueError(f"chain parameters must be (C, {P}), got {tuple(params.shape)}")
+    if params.stride(1) != 1:
+        params = params.contiguous()
+    return params
+
+
+def _check_chains(name, x, params):
+    """What ``_check_cuda`` asks, for a table whose rows may be strided."""
+    _check_cuda(name, x)
+    if params.device != x.device:
+        raise ValueError(f"{name}: the table is on {params.device}, x on {x.device}")
+    if params.requires_grad:
+        raise RuntimeError(f"{name}: the CUDA kernel has no autograd rule; "
+                           "inputs must not require grad")
+    if params.shape[0] > 65535 or x.shape[0] > _INT32_MAX:
+        raise ValueError(f"{name}: at most 65535 chains and n in int32, got "
+                         f"{params.shape[0]} and {x.shape[0]}")
+
+
+def pairwise_matrix_chains(kernel_template, x, params, diag) -> torch.Tensor:
+    """K_c = k(x_i - x_j; params[c]) + diag[c] I for every chain c: (C, n, n).
+
+    ``params`` is (C, P) in ``kernel_template``'s parameter order and
+    ``diag`` (C,) the diagonal term s_c^2 + jitter of each chain.  The CUDA
+    path is kernel B1 over the (C, P + 1) table [params, diag], one launch."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params)
+    diag = torch.as_tensor(diag, dtype=x.dtype, device=x.device)
+    if diag.shape != params.shape[:1]:
+        raise ValueError(f"diag must be ({params.shape[0]},), got {tuple(diag.shape)}")
+    if x.device.type == "cpu":
+        return pairwise_matrix_chains_reference(kernel_template, x, params, diag)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    table = torch.cat([params, diag[:, None]], dim=1)
+    _check_chains("pairwise_matrix_chains", x, table)
+    C, stride = table.shape
+    n = x.shape[0]
+    out = torch.empty((C, n, n), dtype=x.dtype, device=x.device)
+    if n == 0 or C == 0:
+        return out
+    status = _build.entry("gp_pairwise_k_chains", x.dtype)(
+        x.device.index, x.data_ptr(), x.data_ptr(), table.data_ptr(), out.data_ptr(),
+        n, n, C, stride, _family(kernel_template), 1, _build.stream_of(x),
+    )
+    _build.check(status, "gp_pairwise_k_chains")
+    _build.launch_counts["pairwise_k_chains"] += 1
+    return out
+
+
+def pairwise_matrix_chains_reference(kernel_template, x, params, diag) -> torch.Tensor:
+    """Plain PyTorch twin of ``pairwise_matrix_chains``: the closed form
+    broadcast over the chain dimension."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params)
+    d = pairwise_diff(x, x)[None]
+    K = type(kernel_template).k_fn(d, *(p[:, None, None] for p in params.unbind(1)))
+    K.diagonal(dim1=-2, dim2=-1).add_(torch.as_tensor(diag, dtype=x.dtype,
+                                                      device=x.device)[:, None])
+    return K
+
+
+def pairwise_jacobian_chains(kernel_template, x, params) -> torch.Tensor:
+    """dK_c/dtheta for every chain c: (C, P, n, n).  The CUDA path is kernel
+    B2a over the (C, P) table (rows may be a strided view), one launch."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params)
+    if x.device.type == "cpu":
+        return pairwise_jacobian_chains_reference(kernel_template, x, params)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    _check_chains("pairwise_jacobian_chains", x, params)
+    C, P = params.shape
+    n = x.shape[0]
+    out = torch.empty((C, P, n, n), dtype=x.dtype, device=x.device)
+    if n == 0 or C == 0:
+        return out
+    status = _build.entry("gp_pairwise_jac_chains", x.dtype)(
+        x.device.index, x.data_ptr(), x.data_ptr(), params.data_ptr(), out.data_ptr(),
+        n, n, C, params.stride(0), _family(kernel_template), _build.stream_of(x),
+    )
+    _build.check(status, "gp_pairwise_jac_chains")
+    _build.launch_counts["pairwise_jac_chains"] += 1
+    return out
+
+
+def pairwise_jacobian_chains_reference(kernel_template, x, params) -> torch.Tensor:
+    """Plain PyTorch twin of ``pairwise_jacobian_chains``."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params)
+    d = pairwise_diff(x, x)[None]
+    return torch.stack(type(kernel_template).jac_fn(
+        d, *(p[:, None, None] for p in params.unbind(1))), dim=1)
 
 
 def hessian_plane_folded(kernel, x1, x2, pair) -> torch.Tensor:

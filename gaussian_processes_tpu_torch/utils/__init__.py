@@ -16,7 +16,7 @@ from gaussian_processes_tpu_torch.utils.device import (
     apply_precision_policy,
     resolve_device,
 )
-from gaussian_processes_tpu_torch.utils.metrics import MetricsLogger
+from gaussian_processes_tpu_torch.utils.metrics import MetricsLogger, summarize_nuts
 from gaussian_processes_tpu_torch.utils.profiling import (
     fit_flops,
     peak_flops,
@@ -39,6 +39,7 @@ __all__ = [
     "apply_precision_policy",
     "resolve_device",
     "MetricsLogger",
+    "summarize_nuts",
     "fit_flops",
     "peak_flops",
     "roofline",

@@ -2,7 +2,8 @@
 
 Counterpart of ``gaussian_processes_tpu/utils/metrics.py`` (which imports no
 JAX; copied so the port never imports the JAX package): a lightweight JSONL
-logger, one JSON object per event to stdout and/or a file.
+logger, one JSON object per event to stdout and/or a file, and the
+samplers' health summary.
 """
 
 from __future__ import annotations
@@ -46,3 +47,23 @@ class MetricsLogger:
             self._file.close()
             self._file = None
 
+
+
+def summarize_nuts(result) -> dict:
+    """Standard sampler health summary from a NUTS or ChEES result (tensors
+    on any device)."""
+    import numpy as np
+    import torch
+
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    acc = host(result.accept_prob)
+    return {
+        "n_samples": int(acc.shape[0]),
+        "n_chains": int(acc.shape[1]),
+        "accept_rate": float(acc.mean()),
+        "divergence_frac": float(host(result.diverging).mean()),
+        "mean_leapfrog": float(host(result.num_leapfrog).mean()),
+        "step_size": float(host(result.step_size)),
+    }

@@ -15,8 +15,8 @@ synchronized call.  The script prints the card's name and power limit and
 one JSON line.  ``--profile DIR`` also writes a ``torch.profiler`` breakdown
 by kernel of one warm SE and one warm ARD ``fit_iterative`` at N=65536, of
 one SE value+grad there, of one exact fit at N=16384, of one gradient +
-chunked Hessian at N=4096 and of 100 B1 and B6 launches at the pivot
-shapes to DIR/profile.json and prints its summary.  ``--ptxas SOURCE ...`` (file names under the
+chunked Hessian at N=4096, of 100 B1 and B6 launches at the pivot
+shapes and of one batched value+grad of 64 chains at N=500 to DIR/profile.json and prints its summary.  ``--ptxas SOURCE ...`` (file names under the
 package's csrc/, as matvec_f32.cu) compiles those sources with ``-Xptxas
 -v`` and prints each kernel's registers, spills and stack, and does nothing
 else.  Needs a CUDA card (``--ptxas``: only nvcc); exits 1 without one.
@@ -50,7 +50,47 @@ def wall_s(fn) -> float:
 
 
 def measure(dev) -> dict:
-    return {**measure_exact_and_ard(dev), **measure_products(dev)}
+    return {**measure_exact_and_ard(dev), **measure_products(dev), **measure_chains(dev)}
+
+
+def measure_chains(dev) -> dict:
+    """The samplers' batched evaluation at C = 64, N = 500 (chip_smoke.py's
+    chain workload): B1 and B2a over the chain table (SE and periodic), B3
+    on the chains' (64, 128, 128) tile stack, the batched blocked factor,
+    and the batched value and gradient, device time and host wall.  Empty
+    for a tree without the chain tables."""
+    import torch
+    from gaussian_processes_tpu_torch.models import gp
+    from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    if not hasattr(pw, "pairwise_matrix_chains"):
+        return {}
+    out = {}
+    for fam in ("se", "periodic"):
+        x, template, theta = cs.chain_problem(dev, torch.float32, fam)
+        P = template.n_params
+        params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
+        out[f"B1_chains_{fam}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_matrix_chains(template, x, params, diag), 50)
+        out[f"B2a_chains_{fam}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_jacobian_chains(template, x, params), 50)
+    x, template, theta = cs.chain_problem(dev, torch.float32, "se")
+    K = pw.pairwise_matrix_chains(template, x, theta[:, :2], theta[:, 2] ** 2 + 1e-6)
+    tiles = K[:, :128, :128].contiguous()
+    out["chol_tile_inv_chains_ms"] = cs.time_ms(lambda: bc.chol_tile_inv(tiles), 50)
+    out["cholesky_blocked_chains_ms"] = cs.time_ms(lambda: bc.cholesky_blocked(K), 20)
+    out["cholesky_ex_chains_ms"] = cs.time_ms(lambda: torch.linalg.cholesky_ex(K), 20)
+    y = torch.sin(2 * x)
+
+    def value_and_grad():
+        gp.log_marginal_value_and_grad_chains(template, x, y, theta, 1e-6)
+
+    out["value_and_grad_chains_ms"] = cs.time_ms(value_and_grad, 20)
+    value_and_grad()
+    out["value_and_grad_chains_wall_s"] = statistics.median(
+        wall_s(value_and_grad) for _ in range(15))
+    return out
 
 
 def measure_exact_and_ard(dev) -> dict:
@@ -167,8 +207,9 @@ def measure_products(dev) -> dict:
 def profile(dev, out_dir: str) -> dict:
     """Device time by kernel of one warm SE fit, SE value+grad and ARD fit
     at ITER_N, of one exact fit at K_N, of one gradient + chunked Hessian
-    at GRAD_N, and of 100 B1 and B6 launches at each pivot shape of the
-    pivoted Cholesky (the kernel alone, without the time between launches)."""
+    at GRAD_N, of 100 B1 and B6 launches at each pivot shape of the
+    pivoted Cholesky (the kernel alone, without the time between launches),
+    and of one batched value+grad of CHAINS chains at CHAIN_N."""
     import dataclasses
 
     import torch
@@ -206,6 +247,11 @@ def profile(dev, out_dir: str) -> dict:
         "B1_pivot_column_x100": times100(lambda: pw.pairwise_matrix(ks, xs, ps)),
         "B1_pivot_row_x100": times100(lambda: pw.pairwise_matrix(ks, ps, xs)),
     }
+    if hasattr(gpx.models.gp, "log_marginal_value_and_grad_chains"):
+        xc, kc, theta = cs.chain_problem(dev, torch.float32, "se")
+        yc = torch.sin(2 * xc)
+        runs[f"value_and_grad_chains_{cs.CHAINS}x{cs.CHAIN_N}"] = (
+            lambda: gpx.models.gp.log_marginal_value_and_grad_chains(kc, xc, yc, theta, 1e-6))
     result = {}
     for name, fn in runs.items():
         fn()  # warm

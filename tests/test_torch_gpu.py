@@ -352,3 +352,48 @@ def test_fit_iterative_on_card_matches_cpu(cuda):
                             torch.Generator().manual_seed(0), **opts)
     np.testing.assert_allclose(got.alpha.cpu().numpy(), want.alpha.numpy(), rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(got.log_marginal.item(), want.log_marginal.item(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", list(KERNELS))
+@pytest.mark.parametrize("chains,n", [(1, 300), (5, 37), (64, 500), (3, 129)])
+def test_chain_tables_match_plain(cuda, family, dtype, chains, n):
+    k = KERNELS[family](dtype, cuda)
+    P = k.n_params
+    x = _x(n, 2, dtype, cuda)
+    g = torch.Generator().manual_seed(chains)
+    theta = (0.5 + torch.rand(chains, P + 1, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6  # params: a strided view
+    before = dict(_build.launch_counts)
+    _close(tpw.pairwise_matrix_chains(k, x, params, diag),
+           tpw.pairwise_matrix_chains_reference(k, x, params, diag), dtype)
+    _close(tpw.pairwise_jacobian_chains(k, x, params),
+           tpw.pairwise_jacobian_chains_reference(k, x, params), dtype)
+    for key in ("pairwise_k_chains", "pairwise_jac_chains"):
+        assert _build.launch_counts[key] == before.get(key, 0) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_blocked_factor_and_value_and_grad_on_card(cuda, dtype):
+    from gaussian_processes_tpu_torch.models import gp
+
+    k = gpx.GaussianKernel(1.0, 1.0, dtype=dtype, device=cuda)
+    x = _x(300, 3, dtype, cuda)
+    y = torch.sin(2 * x)
+    g = torch.Generator().manual_seed(4)
+    theta = (0.5 + torch.rand(6, 3, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    K = tpw.pairwise_matrix_chains(k, x, theta[:, :2], theta[:, 2] ** 2 + 1e-6)
+    L = tbc.cholesky_blocked(K)
+    back = (L.double() @ L.double().mT - K.double()).norm() / K.double().norm()
+    assert float(back) < (1e-6 if dtype == torch.float32 else 1e-13)
+    K[2, 200, 200] = -1.0
+    nan = torch.isnan(tbc.cholesky_blocked(K)).flatten(1).any(1)
+    assert nan.tolist() == [False, False, True, False, False, False]
+    lml, grad = gp.log_marginal_value_and_grad_chains(k, x, y, theta, 1e-6)
+    cpu = gp.log_marginal_value_and_grad_chains(gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64),
+                                                x.cpu().double(),
+                                                y.cpu().double(), theta.cpu().double(), 1e-6)
+    rel = 1e-3 if dtype == torch.float32 else 1e-9
+    torch.testing.assert_close(lml.cpu().double(), cpu[0], rtol=rel, atol=0)
+    torch.testing.assert_close(grad.cpu().double(), cpu[1], rtol=0,
+                               atol=(2e-2 if dtype == torch.float32 else 1e-8) * cpu[1].abs().max())
