@@ -12,16 +12,19 @@
    with bit-identical repeats, B6 over D = 1, 3, 8, 16 at ragged, pivot-row,
    pivot-column and few-row shapes with K(x, x) bitwise symmetric and its
    diagonal exact, B3 with and without its inverse over a batch of 64
-   tiles with non-PD and NaN ones, float32 and float64) and at the shapes of
-   the main paths (B1 and B6 also at the pivoted Cholesky's pivot row and
-   column, B2b at each SE plane), where it also times both with CUDA
-   events, times the PyTorch calls for the same function where there are
-   any (``torch.linalg.cholesky_ex`` for B3's factor, followed by
+   tiles with non-PD and NaN ones, float32 and float64; the same for
+   Matérn 3/2, Matérn 5/2 and RQ in B1, B2a, B2b, B4 and B5, and for
+   Sum/Product trees of depth 1 and 2 in B1's and B4's tree bodies) and at
+   the shapes of the main paths (B1 and B6 also at the pivoted Cholesky's
+   pivot row and column, B2b at each SE plane), where it also times both
+   with CUDA events, times the PyTorch calls for the same function where
+   there are any (``torch.linalg.cholesky_ex`` for B3's factor, followed by
    ``solve_triangular`` for its inverse) and computes each kernel's bound.
    B1 and B2a over a table of 64 chains' parameters and the blocked factor
    of a stack of 64 matrices (B3 on (64, 128, 128) stacks) are held against
-   their plain versions at the samplers' N = 500, SE and periodic, float32
-   and float64, with a non-PD chain that must be NaN alone.
+   their plain versions at the samplers' N = 500, every family and the
+   quasi-periodic tree, float32 and float64, with a non-PD chain that must
+   be NaN alone.
 4. Drives the main paths, each with the launch counters reset just before
    it and read just after: the exact-GP path
    (the ``fit`` workload of BASELINE config #1 through the CLI at N=500 and
@@ -32,8 +35,17 @@
    over 8 dimensions: ``fit_iterative`` at N=65536 and the exact fit at
    N=16384; five Adam steps of ``fit_mle_iterative`` at N=16384), then
    through the CLI config #2 (periodic type-II MLE, 4 restarts) and config
-   #3 (64 chains at N=500) with ChEES and with NUTS, float32.  Requires
-   every kernel of a path to have launched in that path's run.
+   #3 (64 chains at N=500) with ChEES and with NUTS, float32.  Then the
+   families and trees ported after SE and periodic: the exact path for
+   Matérn 3/2, Matérn 5/2 and RQ (fit + predict at N=16384, gradient and
+   chunked Hessian at N=4096 in float32 and float64); the matrix-free path
+   for Matérn 5/2 (``fit_iterative``, predictive mean, stochastic gradient)
+   and the stochastic gradient of Matérn 3/2 and RQ at N=65536; the
+   quasi-periodic tree SE x periodic through ``fit_iterative`` at N=65536;
+   config #2's MLE with RQ and a short ChEES run of config #3 with Matérn
+   5/2 through the CLI; one batched value and gradient of 64 chains for the
+   tree.  Requires every kernel of a path to have launched in that path's
+   run.
 5. Checks the results against independent plain float64 computations on the
    card (pairwise twins + torch.linalg): true residuals of the iterative
    solves, the predictive mean against the generating function, and at
@@ -42,7 +54,11 @@
    #2's recovered period and noise against the truth and its lml against
    the same task in float64; config #3's posterior means against the
    reference's within 4 Monte-Carlo standard errors, with split R-hat,
-   acceptance and divergences.
+   acceptance and divergences; the new families' fits, gradients and
+   Hessians with the SE path's limits, their matrix-free solves' true
+   residuals, RQ's MLE optimum, the Matérn ChEES run's R-hat and
+   acceptance, and the tree's batched value and gradient against the plain
+   float64 version on the CPU.
 6. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check makes the script exit non-zero without the final line.
@@ -121,7 +137,9 @@ ITER_RESIDUAL, ITER_RMSE, ITER_ALPHA_REL, ITER_SE = 1e-4, 0.05, 1e-3, 4.0
 # the samplers' batched evaluation: config #3's 64 chains at its N, each
 # chain's (h, w[, p], s) drawn around config #3's posterior (BASELINE.md)
 CHAINS, CHAIN_N, CHAIN_NONPD = 64, 500, 7
-CHAIN_CENTER = {"se": (1.7, 1.16, 0.094), "periodic": (1.0, 1.0, 0.5, 0.1)}
+CHAIN_CENTER = {"se": (1.7, 1.16, 0.094), "periodic": (1.0, 1.0, 0.5, 0.1),
+                "matern32": (1.7, 1.16, 0.094), "matern52": (1.7, 1.16, 0.094),
+                "rq": (1.0, 1.0, 1.5, 0.1), "tree": (1.7, 1.16, 1.0, 1.0, 0.5, 0.094)}
 # config #2 (BASELINE.md: the reference recovered p = 0.4998, s = 0.098 on
 # sin(2x) data, whose period pi is p = 0.5 in the kernel's units).  Which
 # mode a restart climbs into is chaotic in the rounding: from the same four
@@ -184,6 +202,81 @@ PERIODIC_K_OPS, PERIODIC_JAC_OPS = 6, 11
 SFU_PER_S = F32_PEAK_FLOPS / 2 / 8
 
 
+# Matérn: subtract, scale by s (|d| is an operand modifier), one exp; the
+# polynomial in u as FMAs with h^2 folded into its coefficients, then times E:
+# 3/2 one FMA and a product (6), 5/2 two FMAs (8).  Their Jacobian values:
+# u = t / L (1), 3/2 (1 + u) E as one FMA and u^2 E as two products (7), 5/2
+# u E, u^2 E, (1 + u + u^2 / 3) E as an add and an FMA, u^2 (1 + u) E as an
+# FMA (11).  RQ: subtract, scale, B = t^2 + 1 as an FMA, log, the exponent
+# a log B with log h^2 added (FMA), exp (8); its three values add t^2, 1 / B,
+# q = t^2 / B, q B^-a and B^-a (q - L' log B) as an FMA and a product (14).
+# One Hessian plane: a Matérn (w, w) value u^2 (u - 3) E (with the shared
+# exp, 8); RQ's (a, a) value B^-a ((t^2 / B - ln B)^2 + z^2 / (a^3 B^2)) (16).
+# The quasi-periodic tree SE x periodic: both closed forms and their product.
+MATERN32_K_OPS, MATERN52_K_OPS, RQ_K_OPS = 6, 8, 8
+MATERN32_JAC_OPS, MATERN52_JAC_OPS, RQ_JAC_OPS = 7, 11, 14
+MATERN_HESS_PLANE_OPS, RQ_HESS_PLANE_OPS = 8, 16
+TREE_K_OPS = SE_K_OPS + PERIODIC_K_OPS + 1
+# per family: K ops, Jacobian ops, the timed Hessian plane and its ops,
+# special-function results per element (K; Jacobian)
+NEW_FAMILY_OPS = {
+    "matern32": (MATERN32_K_OPS, MATERN32_JAC_OPS, (1, 1), MATERN_HESS_PLANE_OPS, 1, 1),
+    "matern52": (MATERN52_K_OPS, MATERN52_JAC_OPS, (1, 1), MATERN_HESS_PLANE_OPS, 1, 1),
+    "rq": (RQ_K_OPS, RQ_JAC_OPS, (2, 2), RQ_HESS_PLANE_OPS, 2, 2),
+}
+# the families ported after SE and periodic: their kernels at the exact
+# path's hyperparameters (h = 1, w = 1; RQ a = 1.5), and their small-shape
+# hyperparameters
+NEW_FAMILY_PARAMS = {"matern32": (1.0, 1.0), "matern52": (1.0, 1.0), "rq": (1.0, 1.0, 1.5)}
+NEW_FAMILY_SMALL = {"matern32": (1.3, 0.7), "matern52": (1.1, 0.9), "rq": (0.9, 1.1, 1.5)}
+# the matrix-free Matérn 5/2, Matérn 3/2 and RQ phases take the SE workload's
+# data, lengthscale and solver settings; the tree phase the quasi-periodic
+# pair of tests/test_iterative.py, SE x periodic(1.0, 1.3, 2.0), with the SE
+# factor at the SE workload's h = 1 and w: with that test's SE(1.2, 0.6) at
+# N=65536, K has rank ~50 against a noise of 0.01 and float32 PCG ended at a
+# recurrence residual of 8.5e-5 and a true residual of 4.6e-4 in 150
+# iterations (my chip call 1, PR 7).  The small-shape checks and the chain
+# phase keep SE(1.2, 0.6).
+TREE_QP = ((1.2, 0.6), (1.0, 1.3, 2.0))
+# config #2's MLE task with the RQ kernel (from h = 1, w = 1, a = 1.5); a short
+# ChEES run of config #3 with Matérn 5/2; both float32.  200 + 200 transitions
+# took 760 s on the card (822 leapfrogs a transition on average, my chip call
+# 1, PR 7), so the run is cut to 50 + 50
+MLE_RQ_START = (1.0, 1.0, 1.5)
+CHEES_NEW_WARMUP, CHEES_NEW_SAMPLES, CHEES_NEW_RHAT = 50, 50, 1.05
+
+
+def new_kernel(family, params, dtype, dev):
+    import gaussian_processes_tpu_torch as gpx
+
+    cls = {"matern32": gpx.Matern32Kernel, "matern52": gpx.Matern52Kernel,
+           "rq": gpx.RationalQuadraticKernel}[family]
+    return cls(*params, dtype=dtype, device=dev)
+
+
+def tree_kernel(name, dtype, dev, se=TREE_QP[0]):
+    """The quasi-periodic product SE x periodic (depth 1), a sum of products
+    over Matérn, RQ and periodic leaves (depth 2), a product of a sum; ``se``
+    is the SE leaf's (h, w)."""
+    import gaussian_processes_tpu_torch as gpx
+
+    se = gpx.GaussianKernel(*se, dtype=dtype, device=dev)
+    per = gpx.PeriodicKernel(*TREE_QP[1], dtype=dtype, device=dev)
+    if name == "qp":
+        return gpx.ProductKernel(se, per)
+    if name == "sum_of_products":
+        return gpx.SumKernel(
+            gpx.ProductKernel(gpx.Matern52Kernel(1.0, 0.7, dtype=dtype, device=dev),
+                              gpx.RationalQuadraticKernel(1.0, 1.3, 0.7, dtype=dtype,
+                                                          device=dev)),
+            gpx.ProductKernel(per, gpx.Matern32Kernel(0.8, 2.0, dtype=dtype, device=dev)))
+    return gpx.ProductKernel(gpx.SumKernel(se, per),
+                             gpx.GaussianKernel(0.5, 2.0, dtype=dtype, device=dev))
+
+
+TREES = ("qp", "sum_of_products", "product_of_sum")
+
+
 def ard_ops(dim: int) -> int:
     return 3 * dim + 1
 
@@ -191,12 +284,12 @@ KERNEL_ROWS = [
     # (name, launch counter, timed row, source, replaces[, the paths whose
     # launches it counts, all by default]); B3's rows time the variant with
     # the inverse, the one the paths launch
-    ("B1 pairwise K", "pairwise_k", "pairwise_k", "gaussian_processes_tpu_torch/csrc/pairwise.cu",
+    ("B1 pairwise K", "pairwise_k", "pairwise_k", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
      "gaussian_processes_tpu/ops/pairwise.py:88"),
     ("B2a pairwise dK/dtheta", "pairwise_jac", "pairwise_jac",
-     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:270"),
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:270"),
     ("B2b pairwise d2K/dtheta2", "pairwise_hess", "pairwise_hess",
-     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:277"),
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:277"),
     ("B3 Cholesky tile with its inverse", "chol_tile", "chol_tile_inv",
      "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
      "gaussian_processes_tpu/ops/blocked_cholesky.py:83"),
@@ -212,12 +305,40 @@ KERNEL_ROWS = [
      "gaussian_processes_tpu/ops/pairwise.py:188"),
     # the samplers' and MLE's cases: one launch per batched evaluation
     ("B1 pairwise K over a chain table", "pairwise_k_chains", "pairwise_k_chains",
-     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:88"),
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88"),
     ("B2a pairwise dK/dtheta over a chain table", "pairwise_jac_chains", "pairwise_jac_chains",
-     "gaussian_processes_tpu_torch/csrc/pairwise.cu", "gaussian_processes_tpu/ops/pairwise.py:270"),
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:270"),
     ("B3 Cholesky tile with its inverse on chain stacks", "chol_tile", "chol_tile_inv_chains",
      "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
-     "gaussian_processes_tpu/ops/blocked_cholesky.py:83", ("mle", "chees", "nuts")),
+     "gaussian_processes_tpu/ops/blocked_cholesky.py:83",
+     ("mle", "chees", "nuts", "mle-rq", "chees-matern52", "chains-tree")),
+    # the families and trees ported after SE and periodic, one row per case
+    *((f"B1 pairwise K, {fam}", f"pairwise_k_{fam}", f"pairwise_k_{fam}",
+       "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:88") for fam in NEW_FAMILY_OPS),
+    ("B1 pairwise K, Sum/Product tree body (pivot row)", "pairwise_k_tree",
+     "pairwise_k_tree_pivot_row", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:88"),
+    *((f"B2a pairwise dK/dtheta, {fam}", f"pairwise_jac_{fam}", f"pairwise_jac_{fam}",
+       "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:270") for fam in NEW_FAMILY_OPS),
+    *((f"B2b pairwise d2K/dtheta2 one plane, {fam}", f"pairwise_hess_{fam}", f"pairwise_hess_{fam}",
+       "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:277") for fam in NEW_FAMILY_OPS),
+    *((f"B4 fused kernel matvec, {fam}", f"kernel_matvec_{fam}", f"kernel_matvec_{fam}",
+       "gaussian_processes_tpu_torch/csrc/matvec.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:363") for fam in NEW_FAMILY_OPS),
+    ("B4 fused kernel matvec, Sum/Product tree body", "kernel_matvec_tree", "kernel_matvec_tree",
+     "gaussian_processes_tpu_torch/csrc/matvec.cuh", "gaussian_processes_tpu/ops/pairwise.py:363"),
+    *((f"B5 fused Jacobian product, {fam}", f"kernel_jacvec_{fam}", f"kernel_jacvec_{fam}",
+       "gaussian_processes_tpu_torch/csrc/matvec.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:528") for fam in NEW_FAMILY_OPS),
+    *((f"B1 pairwise K over a chain table, {fam}", f"pairwise_k_chains_{fam}",
+       f"pairwise_k_chains_{fam}", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:88") for fam in ("matern52", "rq", "tree")),
+    *((f"B2a pairwise dK/dtheta over a chain table, {fam}", f"pairwise_jac_chains_{fam}",
+       f"pairwise_jac_chains_{fam}", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:270") for fam in ("matern52", "rq")),
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD
@@ -229,6 +350,18 @@ PATH_KERNELS = {
     "mle": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
     "chees": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
     "nuts": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
+    # the families and trees ported after SE and periodic
+    "exact-new": tuple(f"{k}_{fam}" for fam in NEW_FAMILY_OPS
+                       for k in ("pairwise_k", "pairwise_jac", "pairwise_hess")) + ("chol_tile",),
+    "matrix-free-new": tuple(f"{k}_{fam}" for fam in NEW_FAMILY_OPS
+                             for k in ("pairwise_k", "kernel_matvec", "kernel_jacvec")),
+    "matrix-free-tree": ("pairwise_k_tree", "kernel_matvec_tree"),
+    "mle-rq": ("pairwise_k_chains_rq", "pairwise_jac_chains_rq", "chol_tile"),
+    "chees-matern52": ("pairwise_k_chains_matern52", "pairwise_jac_chains_matern52", "chol_tile"),
+    # a tree's K from B1's tree body, its dK/dtheta from its SE and periodic
+    # leaves' B1 and B2a chain launches
+    "chains-tree": ("pairwise_k_chains_tree", "pairwise_k_chains", "pairwise_jac_chains",
+                    "chol_tile"),
 }
 
 
@@ -367,7 +500,10 @@ def check_kernels_small(check, dev):
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         kernels = {"se": GaussianKernel(1.3, 0.7, dtype=dtype, device=dev),
-                   "periodic": PeriodicKernel(0.9, 1.1, 2.0, dtype=dtype, device=dev)}
+                   "periodic": PeriodicKernel(0.9, 1.1, 2.0, dtype=dtype, device=dev),
+                   **{fam: new_kernel(fam, NEW_FAMILY_SMALL[fam], dtype, dev)
+                      for fam in NEW_FAMILY_SMALL},
+                   **{f"tree {name}": tree_kernel(name, dtype, dev) for name in TREES}}
         for fam, k in kernels.items():
             for n, m in ((1000, 1000), (777, 1234)):
                 x1 = (torch.rand(n, generator=gen, dtype=torch.float64) * 6 - 3).to(dev, dtype)
@@ -380,6 +516,8 @@ def check_kernels_small(check, dev):
                                        pw.pairwise_matrix_reference(k, x1, x2, noise=0.1, jitter=1e-6),
                                        dname)
                 check(f"B1+diag {tag}", v, 1.0)
+                if pw.is_tree(k):  # a tree's derivatives are built from its leaves'
+                    continue
                 _, v = plane_violation(pw.pairwise_jacobian(k, x1, x2),
                                        pw.pairwise_jacobian_reference(k, x1, x2), dname)
                 check(f"B2a {tag}", v, 1.0)
@@ -717,6 +855,171 @@ def check_jac_products_small(check, dev):
             check(f"B5 {fam} {dname} repeats bit-identical (0 = yes)", 0.0 if same else 1.0, 0.0)
 
 
+def check_new_products_small(check, dev):
+    """B4 and B5 for Matérn 3/2, Matérn 5/2 and RQ, and B4's tree body for
+    TREES (depth 1 and 2, a sum of products among them), against the plain
+    products and the plain versions of their own arithmetic, n = 129, 777
+    and r = 1, 4, 8, 9, 16, 300, float32 and float64, each product repeated
+    and required bit-identical; one check per (dtype, kernel, product)
+    holds the largest violation of its 12 shapes."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("B4, B5 for the new families and B4's tree body vs plain over n and r:", flush=True)
+    gen = torch.Generator().manual_seed(7)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        kernels = {**{fam: new_kernel(fam, NEW_FAMILY_SMALL[fam], dtype, dev)
+                      for fam in NEW_FAMILY_SMALL},
+                   **{f"tree {name}": tree_kernel(name, dtype, dev) for name in TREES}}
+        for fam, k in kernels.items():
+            worst, worst_j, same = 0.0, 0.0, True
+            for n in (129, 777):
+                x = (torch.rand(n, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+                J_abs = None if pw.is_tree(k) else pw.pairwise_jacobian_reference(k, x, x).abs()
+                for r in (1, 4, 8, 9, 16, 300):
+                    v = torch.randn(n, r, generator=gen, dtype=torch.float64).to(dev, dtype)
+                    got = pw.kernel_matvec_fused(k, x, v, 0.1, 1e-6)
+                    bound_v = pw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
+                    for want in (pw.kernel_matvec_fused_reference(k, x, v, 0.1, 1e-6),
+                                 pw.matvec_folded_reference(k, x, v) + pw._diag_term(0.1, 1e-6, x) * v):
+                        worst = max(worst, product_violation(got, want, bound_v, dname)[1])
+                    same &= torch.equal(got, pw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
+                    if J_abs is None:
+                        continue
+                    got = pw.kernel_jacvec_fused(k, x, v)
+                    for want in (pw.kernel_jacvec_fused_reference(k, x, v),
+                                 pw.jacvec_folded_reference(k, x, v)):
+                        worst_j = max(worst_j, product_violation(got, want, J_abs @ v.abs(),
+                                                                 dname)[1])
+                    same &= torch.equal(got, pw.kernel_jacvec_fused(k, x, v))
+            check(f"B4 {fam} {dname}, 12 shapes", worst, 1.0)
+            if not pw.is_tree(k):
+                check(f"B5 {fam} {dname}, 12 shapes", worst_j, 1.0)
+            check(f"B4/B5 {fam} {dname} repeats bit-identical (0 = yes)", 0.0 if same else 1.0,
+                  0.0)
+        # k(0) = h^2 on the diagonal, and a Matérn dK/dw is 0 there
+        exact = True
+        x = (torch.rand(500, generator=gen, dtype=torch.float64) * 4 - 2).to(dev, dtype)
+        for fam in NEW_FAMILY_SMALL:
+            k = kernels[fam]
+            h2 = k.h.to(dtype) * k.h.to(dtype)
+            exact &= torch.equal(pw.pairwise_matrix(k, x, x).diagonal(), h2.expand(500))
+            if fam != "rq":
+                exact &= bool((pw.pairwise_jacobian(k, x, x)[1].diagonal() == 0).all())
+        check(f"new families {dname}: K(x, x) diagonal h^2, Matérn dK/dw diagonal 0 (0 = yes)",
+              0.0 if exact else 1.0, 0.0)
+
+
+def check_new_kernels_at_slice(check, dev, rows):
+    """The new families' and the trees' cases at their paths' shapes
+    (float32), timed against their plain versions: B1 at 16384^2 with the
+    diagonal, B2a and one B2b plane at 4096^2 (the exact paths), B1 pivot
+    rows and B4 / B5 at N = 65536 (the matrix-free paths: Matérn 5/2 at
+    r = 1, 8, 9, the others at r = 9, the quasi-periodic tree at r = 1, 8)."""
+    import dataclasses as dc
+
+    import torch
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    print("new families and trees vs plain at the paths' shapes (float32):", flush=True)
+    f32 = torch.float32
+    data = CONFIGS["config1_fit_se500"].data
+    x16 = torch.as_tensor(make_data(dc.replace(data, n=K_N), "float32")[0], device=dev)
+    x4 = torch.as_tensor(make_data(dc.replace(data, n=GRAD_N), "float32")[0], device=dev)
+    noise = torch.tensor(0.1, dtype=f32, device=dev)
+    n2, g2 = K_N * K_N, GRAD_N * GRAD_N
+
+    def record(key, label, kern, plain, iters, plain_iters, work, sfu=None, err_of=None):
+        got, want = kern(), plain()
+        err, viol = err_of(got, want) if err_of else plane_violation(got, want, "float32")
+        del got, want
+        rows[key] = {"max_abs_err": err, "ms": time_ms(kern, iters),
+                     "plain_ms": time_ms(plain, plain_iters), "library_ms": None, **bound(*work)}
+        if sfu is not None:
+            rows[key]["sfu_floor_ms"] = sfu_floor_ms(sfu)
+        print(f"  {label}: kernel {rows[key]['ms']:.5f} ms, plain {rows[key]['plain_ms']:.5f} ms, "
+              f"bound {rows[key]['bound_ms']:.3e} ms ({rows[key]['bound_by']}), "
+              f"max_abs_err {err:.3e}", flush=True)
+        check(label, viol, 1.0)
+        torch.cuda.empty_cache()
+
+    for fam, (k_ops, j_ops, pair, h_ops, _, _) in NEW_FAMILY_OPS.items():
+        k = new_kernel(fam, NEW_FAMILY_PARAMS[fam], f32, dev)
+        P = k.n_params
+        record(f"pairwise_k_{fam}", f"B1 {fam} {K_N}x{K_N}+diag",
+               lambda: pw.pairwise_matrix(k, x16, x16, noise=noise, jitter=1e-6),
+               lambda: pw.pairwise_matrix_reference(k, x16, x16, noise=noise, jitter=1e-6), 10, 3,
+               (k_ops * n2 + K_N, 4 * (2 * K_N + n2)))
+        record(f"pairwise_jac_{fam}", f"B2a {fam} {GRAD_N}x{GRAD_N}",
+               lambda: pw.pairwise_jacobian(k, x4, x4),
+               lambda: pw.pairwise_jacobian_reference(k, x4, x4), 10, 3,
+               (j_ops * g2, 4 * (2 * GRAD_N + P * g2)))
+        record(f"pairwise_hess_{fam}", f"B2b {fam} {GRAD_N}x{GRAD_N} pair {pair}",
+               lambda: pw.pairwise_hessian(k, x4, x4, pair=pair),
+               lambda: pw.pairwise_hessian_reference(k, x4, x4, pair=pair), 10, 3,
+               (h_ops * g2, 4 * (2 * GRAD_N + g2)))
+    kt = tree_kernel("qp", f32, dev)
+    record("pairwise_k_tree_16384", f"B1 tree qp {K_N}x{K_N}+diag",
+           lambda: pw.pairwise_matrix(kt, x16, x16, noise=noise, jitter=1e-6),
+           lambda: pw.pairwise_matrix_reference(kt, x16, x16, noise=noise, jitter=1e-6), 10, 3,
+           (TREE_K_OPS * n2 + K_N, 4 * (2 * K_N + n2)))
+
+    gen = torch.Generator().manual_seed(8)
+    x, _, k_se = sine_problem(ITER_N, dev)
+    w_iter = float(k_se.w)
+    N2 = ITER_N * ITER_N
+    piv = x[ITER_N // 3:ITER_N // 3 + 1].contiguous()
+
+    def product_err(bound_fn):
+        def err_of(got, want):
+            return product_violation(got, want, bound_fn(), "float32")
+        return err_of
+
+    kernels = {fam: new_kernel(fam, (1.0, w_iter, *NEW_FAMILY_PARAMS[fam][2:]), f32, dev)
+               for fam in NEW_FAMILY_OPS}
+    for fam, (k_ops, j_ops, _, _, sfu_k, sfu_j) in NEW_FAMILY_OPS.items():
+        k = kernels[fam]
+        P = k.n_params
+        record(f"pairwise_k_{fam}_pivot_row", f"B1 {fam} pivot row 1x{ITER_N}",
+               lambda: pw.pairwise_matrix(k, piv, x), lambda: pw.pairwise_matrix_reference(k, piv, x),
+               200, 50, (k_ops * ITER_N, 4 * (1 + 2 * ITER_N)))
+        for r in ((1, 8, 9) if fam == "matern52" else (9,)):
+            v = torch.randn(ITER_N, r, generator=gen).to(dev)
+            key = f"kernel_matvec_{fam}" + ("" if r == (1 if fam == "matern52" else 9) else f"_r{r}")
+            record(key, f"B4 {fam} N={ITER_N} r={r}",
+                   lambda: pw.kernel_matvec_fused(k, x, v, noise, ITER_JITTER),
+                   lambda: pw.kernel_matvec_fused_reference(k, x, v, noise, ITER_JITTER), 5, 2,
+                   ((k_ops + 2 * r) * N2, 4 * (ITER_N + 2 * ITER_N * r)), sfu_k * N2,
+                   product_err(lambda: pw.kernel_matvec_fused_reference(k, x, v.abs(), noise,
+                                                                        ITER_JITTER)))
+
+        def jac_bound(u, k=k, block=2048):
+            out = torch.zeros(k.n_params, ITER_N, u.shape[1], device=dev)
+            for j in range(0, ITER_N, block):
+                out += pw.pairwise_jacobian_reference(k, x, x[j:j + block]).abs() @ u[j:j + block].abs()
+            return out
+
+        u = torch.randn(ITER_N, 9, generator=gen).to(dev)
+        record(f"kernel_jacvec_{fam}", f"B5 {fam} N={ITER_N} r=9",
+               lambda: pw.kernel_jacvec_fused(k, x, u), lambda: pw.kernel_jacvec_fused_reference(k, x, u),
+               5, 2, ((j_ops + 2 * P * 9) * N2, 4 * (ITER_N + 9 * ITER_N + P * 9 * ITER_N)),
+               sfu_j * N2, product_err(lambda: jac_bound(u)))
+    kt = tree_kernel("qp", f32, dev, se=(1.0, w_iter))
+    record("pairwise_k_tree_pivot_row", f"B1 tree qp pivot row 1x{ITER_N}",
+           lambda: pw.pairwise_matrix(kt, piv, x), lambda: pw.pairwise_matrix_reference(kt, piv, x),
+           200, 50, (TREE_K_OPS * ITER_N, 4 * (1 + 2 * ITER_N)))
+    for r in (1, 8):
+        v = torch.randn(ITER_N, r, generator=gen).to(dev)
+        record("kernel_matvec_tree" + ("" if r == 1 else f"_r{r}"), f"B4 tree qp N={ITER_N} r={r}",
+               lambda: pw.kernel_matvec_fused(kt, x, v, noise, ITER_JITTER),
+               lambda: pw.kernel_matvec_fused_reference(kt, x, v, noise, ITER_JITTER), 3, 2,
+               ((TREE_K_OPS + 2 * r) * N2, 4 * (ITER_N + 2 * ITER_N * r)), 3 * N2,
+               product_err(lambda: pw.kernel_matvec_fused_reference(kt, x, v.abs(), noise,
+                                                                    ITER_JITTER)))
+
+
 def check_products_at_slice(check, dev, rows):
     """Phase 3b, matrix-free kernels at the main path's shapes (float32),
     timed against their plain versions and against the strip matvec (B1
@@ -852,19 +1155,26 @@ def chain_problem(dev, dtype, family, chains=CHAINS, n=CHAIN_N):
     dname = str(dtype).split(".")[-1]
     data = dataclasses.replace(CONFIGS["config3_chees_64"].data, n=n)
     x = torch.as_tensor(make_data(data, dname)[0], device=dev)
-    cls = GaussianKernel if family == "se" else PeriodicKernel
     center = np.log(CHAIN_CENTER[family])
     u = center + 0.3 * np.random.default_rng(6).standard_normal((chains, center.size))
-    template = cls(*([1.0] * (center.size - 1)), dtype=dtype, device=dev)
+    ones = [1.0] * (center.size - 1)
+    if family == "tree":
+        template = tree_kernel("qp", dtype, dev)
+    elif family in NEW_FAMILY_PARAMS:
+        template = new_kernel(family, ones, dtype, dev)
+    else:
+        cls = GaussianKernel if family == "se" else PeriodicKernel
+        template = cls(*ones, dtype=dtype, device=dev)
     return x, template, torch.as_tensor(np.exp(u), dtype=dtype, device=dev)
 
 
 def check_chain_kernels(check, dev, rows):
     """Phase 3c: B1 and B2a over a (C, P) parameter table and the batched
     blocked factor over B3 stacks, at the samplers' shapes (C = 64, N =
-    500), SE and periodic, float32 and float64, against their plain
-    versions; in float32 also timed, with the batched value and gradient
-    that a leapfrog of config #3 evaluates."""
+    500), SE, periodic, Matérn 3/2 and 5/2, RQ and the quasi-periodic tree
+    (its dK/dtheta from its leaves' launches), float32 and float64, against
+    their plain versions; in float32 also timed, with the batched value and
+    gradient that a leapfrog of config #3 evaluates."""
     import torch
     from gaussian_processes_tpu_torch.models import gp
     from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
@@ -876,7 +1186,9 @@ def check_chain_kernels(check, dev, rows):
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         for fam, k_ops, j_ops in (("se", SE_K_OPS, SE_JAC_OPS),
-                                  ("periodic", PERIODIC_K_OPS, PERIODIC_JAC_OPS)):
+                                  ("periodic", PERIODIC_K_OPS, PERIODIC_JAC_OPS),
+                                  *((f, o[0], o[1]) for f, o in NEW_FAMILY_OPS.items()),
+                                  ("tree", TREE_K_OPS, None)):
             x, template, theta = chain_problem(dev, dtype, fam)
             P = template.n_params
             params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
@@ -886,8 +1198,8 @@ def check_chain_kernels(check, dev, rows):
             K, Kr = kern(), plain()
             err, v = plane_violation(K, Kr, dname)
             check(f"B1 chain table {tag}", v, 1.0)
-            timed = dtype == torch.float32
-            key = "pairwise_k_chains" + ("" if fam == "se" else "_periodic")
+            timed = dtype == torch.float32 and fam != "matern32"  # not on a chain path
+            key = "pairwise_k_chains" + ("" if fam == "se" else f"_{fam}")
             if timed:
                 rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
                              "library_ms": None,
@@ -895,8 +1207,14 @@ def check_chain_kernels(check, dev, rows):
             kern = lambda: pw.pairwise_jacobian_chains(template, x, params)  # noqa: E731
             plain = lambda: pw.pairwise_jacobian_chains_reference(template, x, params)  # noqa: E731
             err, v = plane_violation(kern(), plain(), dname)
-            check(f"B2a chain table {tag}", v, 1.0)
-            key = "pairwise_jac_chains" + ("" if fam == "se" else "_periodic")
+            check(f"B2a chain table {tag}" + (" (from its leaves' launches)" if j_ops is None
+                                               else ""), v, 1.0)
+            if j_ops is None:  # a tree: B2a over its leaves, timed as a whole
+                if timed:
+                    rows["tree_jacobian_chains"] = {"max_abs_err": err, "ms": time_ms(kern, 20),
+                                                    "plain_ms": time_ms(plain, 20)}
+                continue
+            key = "pairwise_jac_chains" + ("" if fam == "se" else f"_{fam}")
             if timed:
                 rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
                              "library_ms": None,
@@ -959,7 +1277,9 @@ def check_chain_kernels(check, dev, rows):
                                              "wall_ms": (time.perf_counter() - t0) / 20 * 1e3}
     for key in ("pairwise_k_chains", "pairwise_k_chains_periodic", "pairwise_jac_chains",
                 "pairwise_jac_chains_periodic", "chol_tile_inv_chains", "cholesky_blocked_chains",
-                "value_and_grad_chains"):
+                "value_and_grad_chains", "pairwise_k_chains_matern52", "pairwise_jac_chains_matern52",
+                "pairwise_k_chains_rq", "pairwise_jac_chains_rq", "pairwise_k_chains_tree",
+                "tree_jacobian_chains"):
         r = rows[key]
         print(f"  {key}: {r['ms']:.4f} ms" + "".join(
             f", {f} {r[f]:.4f}" for f in ("plain_ms", "library_ms", "bound_ms", "wall_ms")
@@ -1164,13 +1484,6 @@ def check_iterative_path(check, out, dev) -> dict:
     summary = {key: out[key] for key in ("fit_wall_s", "grad_wall_s", "ard_fit_wall_s",
                                           "ard_fit_warm_wall_s")}
 
-    def true_residual(k, x, y, alpha):
-        k64 = k.with_params(k.params.double())
-        y64 = y.double()
-        r = pw.kernel_matvec_fused_reference(k64, x.double(), alpha.double(), ITER_NOISE,
-                                             ITER_JITTER) - y64
-        return float(torch.linalg.norm(r) / torch.linalg.norm(y64))
-
     def finite(*ts):
         return 0.0 if all(bool(torch.isfinite(t).all()) for t in ts) else 1.0
 
@@ -1265,13 +1578,15 @@ def check_iterative_path(check, out, dev) -> dict:
     return summary
 
 
-def plain_fit64(x, y, xo, noise, jitter):
-    """Independent float64 fit + predictive mean: twins + torch.linalg."""
+def plain_fit64(x, y, xo, noise, jitter, k=None):
+    """Independent float64 fit + predictive mean: twins + torch.linalg; the
+    kernel ``k`` (in float64), SE with h = w = 1 by default."""
     import torch
     from gaussian_processes_tpu_torch import GaussianKernel
     from gaussian_processes_tpu_torch.ops import pairwise as pw
 
-    k = GaussianKernel(1.0, 1.0, dtype=torch.float64, device=x.device)
+    if k is None:
+        k = GaussianKernel(1.0, 1.0, dtype=torch.float64, device=x.device)
     K = pw.pairwise_matrix_reference(k, x, x, noise=noise, jitter=jitter)
     L = torch.linalg.cholesky(K)
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
@@ -1280,15 +1595,17 @@ def plain_fit64(x, y, xo, noise, jitter):
     return float(lml), pw.pairwise_matrix_reference(k, xo, x) @ alpha
 
 
-def plain_grad_hess64(x, y, noise, jitter):
+def plain_grad_hess64(x, y, noise, jitter, k=None):
     """Independent float64 gradient and Hessian of the log marginal
-    likelihood in theta = (h, w, s), written from the formulas."""
+    likelihood in theta = (kernel params..., s), written from the formulas;
+    the kernel ``k`` (in float64), SE with h = w = 1 by default."""
     import torch
     from gaussian_processes_tpu_torch import GaussianKernel
     from gaussian_processes_tpu_torch.ops import pairwise as pw
 
     n = x.shape[0]
-    k = GaussianKernel(1.0, 1.0, dtype=torch.float64, device=x.device)
+    if k is None:
+        k = GaussianKernel(1.0, 1.0, dtype=torch.float64, device=x.device)
     L = torch.linalg.cholesky(pw.pairwise_matrix_reference(k, x, x, noise=noise, jitter=jitter))
     Kinv = torch.cholesky_inverse(L)
     alpha = Kinv @ y
@@ -1310,6 +1627,287 @@ def plain_grad_hess64(x, y, noise, jitter):
                 t = t + 0.5 * alpha @ (Hpq @ alpha) - 0.5 * (Kinv * Hpq).sum()
             H[p, q] = t
     return grad, H
+
+
+def run_new_exact_path(dev) -> dict:
+    """Phase 4, the exact path for Matérn 3/2, Matérn 5/2 and RQ (h = 1,
+    w = 1; RQ a = 1.5) through the library on config #1's data: ``fit`` and
+    ``predict_diag`` at K_N in float32, the analytic gradient and the
+    chunked Hessian at GRAD_N in float32 and float64."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    cfg1 = CONFIGS["config1_fit_se500"]
+    fit = cfg1.fit
+    out = {}
+    for fam, params in NEW_FAMILY_PARAMS.items():
+        data = dataclasses.replace(cfg1.data, n=K_N)
+        x, y, xo = (torch.as_tensor(a, device=dev) for a in make_data(data, "float32"))
+        k = new_kernel(fam, params, torch.float32, dev)
+        post = gpx.fit(k, x, y, fit.noise, fit.jitter)
+        out[f"fit_{fam}"] = (x, y, xo, float(post.log_marginal), *gpx.predict_diag(post, xo))
+        data = dataclasses.replace(cfg1.data, n=GRAD_N)
+        x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(data, "float32"))
+        for dtype in (torch.float32, torch.float64):
+            k = new_kernel(fam, params, dtype, dev)
+            xd, yd = x.to(dtype), y.to(dtype)
+            _, grad = gpx.log_marginal_value_and_grad(k, xd, yd, fit.noise, fit.jitter)
+            hess = gpx.log_marginal_hessian(k, xd, yd, fit.noise, fit.jitter)
+            out[f"grad_hess_{fam}_{str(dtype).split('.')[-1]}"] = (x, y, grad, hess)
+    return out
+
+
+def check_new_exact_path(check, out, dev):
+    """Phase 5: the new families' exact path against plain float64 on the
+    card, with the limits of the SE path (PERF.md section 2)."""
+    import numpy as np
+    import torch
+
+    print("exact path, Matérn 3/2, Matérn 5/2, RQ (float32 and float64) vs plain float64:",
+          flush=True)
+    noise, jitter = 0.1, 1e-6
+    for fam, params in NEW_FAMILY_PARAMS.items():
+        k64 = new_kernel(fam, params, torch.float64, dev)
+        x, y, xo, lml32, mean32, var32 = out[f"fit_{fam}"]
+        lml64, mean64 = plain_fit64(x.double(), y.double(), xo.double(), noise, jitter, k64)
+        rmse = float(torch.sqrt(torch.mean((mean32.double() - torch.sin(2 * xo.double())) ** 2)))
+        print(f"  {fam} N={K_N}: lml {lml32:.6f} (f64 plain {lml64:.6f}), rmse {rmse:.5f}",
+              flush=True)
+        check(f"{fam} N={K_N} fit lml rel vs f64", abs(lml32 - lml64) / abs(lml64), FIT_LML_REL)
+        check(f"{fam} N={K_N} mean max-abs vs f64", float((mean32.double() - mean64).abs().max()),
+              FIT_MEAN_ABS)
+        check(f"{fam} N={K_N} rmse vs sin(2x)", rmse, FIT_RMSE)
+        finite = bool(torch.isfinite(mean32).all() and torch.isfinite(var32).all())
+        check(f"{fam} N={K_N} outputs finite, shape {tuple(mean32.shape)} (0 = yes)",
+              0.0 if finite and mean32.shape == xo.shape else 1.0, 0.0)
+        check(f"{fam} N={K_N} min predictive var >= -1e-4 (negated)", -float(var32.min()), 1e-4)
+        x, y = out[f"grad_hess_{fam}_float32"][:2]
+        g64, h64 = plain_grad_hess64(x.double(), y.double(), noise, jitter, k64)
+        for dname in ("float32", "float64"):
+            _, _, grad, hess = out[f"grad_hess_{fam}_{dname}"]
+            print(f"  {fam} N={GRAD_N} {dname} grad "
+                  f"{np.array2string(grad.double().cpu().numpy(), precision=6)} (f64 plain "
+                  f"{np.array2string(g64.cpu().numpy(), precision=6)})", flush=True)
+            check(f"{fam} N={GRAD_N} {dname} grad rel (norm) vs plain f64",
+                  float((grad.double() - g64).norm() / g64.norm()), GRAD_REL[dname])
+            check(f"{fam} N={GRAD_N} {dname} hessian rel (norm) vs plain f64",
+                  float((hess.double() - h64).norm() / h64.norm()), HESS_REL[dname])
+
+
+def run_new_iterative_path(dev) -> dict:
+    """Phase 4, the matrix-free path for the new families on the SE
+    workload's data, lengthscale and solver settings at ITER_N: Matérn 5/2
+    ``fit_iterative``, its predictive mean and stochastic gradient, and the
+    stochastic gradient of Matérn 3/2 and RQ (a = 1.5)."""
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    x, y, k_se = sine_problem(ITER_N, dev)
+    w = float(k_se.w)
+    out = {"x": x, "y": y, "w": w}
+    k = new_kernel("matern52", (1.0, w), torch.float32, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = gpx.fit_iterative(k, x, y, ITER_NOISE, seed(30), **ITER_OPTS)
+    torch.cuda.synchronize()
+    out["fit_wall_s"] = time.perf_counter() - t0
+    xo = torch.linspace(-np.pi, np.pi, N_TEST_MEAN, device=dev)
+    out["fit"] = (k, post, xo, gpx.predict_mean_iterative(post, xo))
+    for fam in NEW_FAMILY_PARAMS:
+        kf = new_kernel(fam, (1.0, w, *NEW_FAMILY_PARAMS[fam][2:]), torch.float32, dev)
+        t0 = time.perf_counter()
+        out[f"grad_{fam}"] = gpx.log_marginal_value_and_grad_iterative(
+            kf, x, y, ITER_NOISE, seed(31), **ITER_OPTS)
+        torch.cuda.synchronize()
+        out[f"grad_{fam}_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def true_residual(k, x, y, alpha) -> float:
+    """||(K + (s^2 + jitter) I) alpha - y|| / ||y|| by a plain float64 matvec."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    k64 = k.with_params(k.params.double())
+    y64 = y.double()
+    r = pw.kernel_matvec_fused_reference(k64, x.double(), alpha.double(), ITER_NOISE,
+                                         ITER_JITTER) - y64
+    return float(torch.linalg.norm(r) / torch.linalg.norm(y64))
+
+
+def check_new_iterative_path(check, out) -> dict:
+    import numpy as np
+    import torch
+
+    print("matrix-free path, new families (float32) vs plain float64 on the card:", flush=True)
+    x, y = out["x"], out["y"]
+    k, post, xo, mean = out["fit"]
+    res = true_residual(k, x, y, post.alpha)
+    rmse = float(torch.sqrt(torch.mean((mean.double() - torch.sin(2 * xo.double())) ** 2)))
+    print(f"  matern52 N={ITER_N} (w = {out['w']:.4e}): fit_iterative {out['fit_wall_s']:.3f} s, "
+          f"recurrence residual {float(post.solve_residual):.3e}, true residual {res:.3e}, "
+          f"lml {float(post.log_marginal):.4f}", flush=True)
+    check(f"matern52 N={ITER_N} true relative residual (f64)", res, ITER_RESIDUAL)
+    check(f"matern52 N={ITER_N} mean RMSE vs sin(2x) ({N_TEST_MEAN} points)", rmse, ITER_RMSE)
+    summary = {"matern52_fit_wall_s": out["fit_wall_s"], "matern52_residual": res,
+               "matern52_rmse": rmse}
+    for fam in NEW_FAMILY_PARAMS:
+        lml, grad = out[f"grad_{fam}"]
+        print(f"  {fam} N={ITER_N} value+grad {out[f'grad_{fam}_wall_s']:.3f} s: lml "
+              f"{float(lml):.4f}, grad {np.array2string(grad.double().cpu().numpy(), precision=4)}",
+              flush=True)
+        ok = bool(torch.isfinite(lml)) and bool(torch.isfinite(grad).all())
+        check(f"{fam} N={ITER_N} value+grad finite, shape ({len(NEW_FAMILY_PARAMS[fam]) + 1},) "
+              "(0 = yes)", 0.0 if ok and grad.shape == (len(NEW_FAMILY_PARAMS[fam]) + 1,) else 1.0,
+              0.0)
+        summary[f"{fam}_grad_wall_s"] = out[f"grad_{fam}_wall_s"]
+    return summary
+
+
+def run_tree_iterative_path(dev) -> dict:
+    """Phase 4, the matrix-free path for the quasi-periodic tree at ITER_N
+    on the SE workload's data, lengthscale (the SE leaf's) and solver
+    settings: ``fit_iterative`` (B4's tree body, B1's tree body for the
+    pivot rows) and its predictive mean."""
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    x, y, k_se = sine_problem(ITER_N, dev)
+    k = tree_kernel("qp", torch.float32, dev, se=(1.0, float(k_se.w)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = gpx.fit_iterative(k, x, y, ITER_NOISE, seed(33), **ITER_OPTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xo = torch.linspace(-np.pi, np.pi, N_TEST_MEAN, device=dev)
+    return {"x": x, "y": y, "k": k, "post": post, "xo": xo, "wall_s": wall,
+            "mean": gpx.predict_mean_iterative(post, xo)}
+
+
+def check_tree_iterative_path(check, out) -> dict:
+    import torch
+
+    post, xo, mean = out["post"], out["xo"], out["mean"]
+    res = true_residual(out["k"], out["x"], out["y"], post.alpha)
+    rmse = float(torch.sqrt(torch.mean((mean.double() - torch.sin(2 * xo.double())) ** 2)))
+    print(f"  tree SE x periodic N={ITER_N}: fit_iterative {out['wall_s']:.3f} s, recurrence "
+          f"residual {float(post.solve_residual):.3e}, true residual {res:.3e}, lml "
+          f"{float(post.log_marginal):.4f}", flush=True)
+    check(f"tree N={ITER_N} true relative residual (f64)", res, ITER_RESIDUAL)
+    check(f"tree N={ITER_N} mean RMSE vs sin(2x) ({N_TEST_MEAN} points)", rmse, ITER_RMSE)
+    check(f"tree N={ITER_N} outputs finite (0 = yes)",
+          0.0 if bool(torch.isfinite(post.alpha).all() and torch.isfinite(mean).all()) else 1.0,
+          0.0)
+    return {"tree_fit_wall_s": out["wall_s"], "tree_residual": res, "tree_rmse": rmse}
+
+
+def run_new_sampler_path(dev, path) -> dict:
+    """Phase 4 through the CLI with a kernel override: config #2's MLE task
+    with RQ ("mle-rq"), and config #3's ChEES with Matérn 5/2 cut to
+    CHEES_NEW_WARMUP + CHEES_NEW_SAMPLES ("chees-matern52"), float32."""
+    from gaussian_processes_tpu_torch import cli
+    from gaussian_processes_tpu_torch.utils import CONFIGS, KernelConfig
+
+    if path == "mle-rq":
+        h, w, a = MLE_RQ_START
+        cfg = dataclasses.replace(CONFIGS["config2_mle_periodic"],
+                                  kernel=KernelConfig(family="rq", h=h, w=w, p=a))
+        return cli.run_config(cfg, device=dev)
+    cfg = CONFIGS["config3_chees_64"]
+    cfg = dataclasses.replace(cfg, kernel=KernelConfig(family="matern52"),
+                              nuts=dataclasses.replace(cfg.nuts, num_warmup=CHEES_NEW_WARMUP,
+                                                       num_samples=CHEES_NEW_SAMPLES))
+    return cli.run_config(cfg, device=dev)
+
+
+def check_new_sampler_paths(check, runs, dev) -> dict:
+    """Phase 5: RQ's MLE (finite; its float32 optimum's float64 lml within
+    MLE_LML_NATS of where float64 L-BFGS goes from it) and the Matérn 5/2
+    ChEES run (finite draws, split R-hat, acceptance)."""
+    import math
+
+    import torch
+    from gaussian_processes_tpu_torch.inference import fit_mle
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    s = runs["mle-rq"]
+    cfg = CONFIGS["config2_mle_periodic"]
+    x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(cfg.data, "float64"))
+    h, w, a, noise = s["theta"]
+    k = new_kernel("rq", (h, w, a), torch.float64, dev)
+    L = torch.linalg.cholesky(pw.pairwise_matrix_reference(k, x, x, noise=noise,
+                                                           jitter=cfg.fit.jitter))
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    lml64 = float(-0.5 * torch.dot(y, alpha) - torch.log(torch.diagonal(L)).sum()
+                  - 0.5 * x.shape[0] * LOG_2PI)
+    polished = fit_mle(k, x, y, noise, num_steps=cfg.mle.num_steps, jitter=cfg.fit.jitter)
+    print(f"  config #2 with RQ, float32: {s['mle_wall_s']:.3f} s, theta "
+          f"{[round(t, 5) for t in s['theta']]}, lml {s['log_marginal']:.4f} (in float64 "
+          f"{lml64:.4f}; float64 L-BFGS from there {float(polished.log_marginal):.4f})", flush=True)
+    finite = all(math.isfinite(t) for t in s["theta"]) and math.isfinite(s["log_marginal"])
+    check("config #2 with RQ: theta and lml finite (0 = yes)",
+          0.0 if finite and math.isfinite(lml64) else 1.0, 0.0)
+    check("config #2 with RQ float32 optimum: |lml - lml after float64 L-BFGS from it|, "
+          "float64 (nats)", abs(float(polished.log_marginal) - lml64), MLE_LML_NATS)
+    summary = {"mle_rq": {key: s[key] for key in ("mle_wall_s", "log_marginal", "theta")}}
+    summary["mle_rq"].update(log_marginal_float64=lml64,
+                             polished_float64=float(polished.log_marginal))
+    s = runs["chees-matern52"]
+    d = s["diagnostics"]
+    print(f"  config #3 with Matérn 5/2, ChEES {CHEES_NEW_WARMUP} + {CHEES_NEW_SAMPLES}: "
+          f"{s['wall_s']:.2f} s, accept {s['accept_rate']:.3f}, max R-hat {d['max_rhat']:.4f}, "
+          f"mean leapfrog {s['mean_leapfrog']:.2f}, mean "
+          f"{[round(m, 4) for m in s['posterior_mean']]}", flush=True)
+    check("config #3 with Matérn 5/2 draws finite (0 = yes)", 0.0 if s["draws_finite"] else 1.0,
+          0.0)
+    check("config #3 with Matérn 5/2 max split R-hat", d["max_rhat"], CHEES_NEW_RHAT)
+    check("config #3 with Matérn 5/2 chees mean acceptance", s["accept_rate"], CHEES_ACCEPT[1])
+    check("config #3 with Matérn 5/2 chees mean acceptance (negated)", -s["accept_rate"],
+          -CHEES_ACCEPT[0])
+    summary["chees_matern52"] = {key: s[key] for key in (
+        "wall_s", "accept_rate", "mean_leapfrog", "step_size", "posterior_mean")}
+    summary["chees_matern52"]["max_rhat"] = d["max_rhat"]
+    return summary
+
+
+def run_chains_tree_path(dev) -> dict:
+    """Phase 4: one batched value and gradient of CHAINS chains at CHAIN_N for
+    the quasi-periodic tree, float32 and float64, as a sampler's leapfrog
+    evaluates it."""
+    import torch
+    from gaussian_processes_tpu_torch.models import gp
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x, template, theta = chain_problem(dev, dtype, "tree")
+        y = torch.sin(2 * x)
+        out[str(dtype).split(".")[-1]] = (x, y, theta, *gp.log_marginal_value_and_grad_chains(
+            template, x, y, theta, 1e-6))
+    return out
+
+
+def check_chains_tree_path(check, out):
+    """Phase 5: the tree's batched value and gradient against the plain
+    version (the CPU path: plain twins and LAPACK) in float64."""
+    import torch
+    from gaussian_processes_tpu_torch.models import gp
+
+    x, y, theta, _, _ = out["float64"]
+    template = tree_kernel("qp", torch.float64, "cpu")
+    lml64, grad64 = gp.log_marginal_value_and_grad_chains(template, x.cpu(), y.cpu(),
+                                                          theta.cpu(), 1e-6)
+    for dname, (lml_tol, grad_tol) in (("float32", (1e-3, 2e-2)), ("float64", (1e-9, 1e-8))):
+        _, _, _, lml, grad = out[dname]
+        lml_rel = float(((lml.cpu().double() - lml64).abs() / lml64.abs()).max())
+        grad_rel = float((grad.cpu().double() - grad64).abs().max() / grad64.abs().max())
+        print(f"  tree value+grad, {CHAINS} chains at N={CHAIN_N}, {dname}: lml rel {lml_rel:.3e}, "
+              f"grad (max abs / max) {grad_rel:.3e}", flush=True)
+        check(f"tree chains {dname}: lml rel vs plain f64", lml_rel, lml_tol)
+        check(f"tree chains {dname}: grad max-abs / max vs plain f64", grad_rel, grad_tol)
 
 
 def run_main_path(dev) -> dict:
@@ -1406,9 +2004,11 @@ def main() -> int:
     check_products_small(check, dev)
     check_ard_products_small(check, dev)
     check_jac_products_small(check, dev)
+    check_new_products_small(check, dev)
     check_ard_pairwise_small(check, dev)
     slice_rows = check_kernels_at_slice(check, dev)
     check_products_at_slice(check, dev, slice_rows)
+    check_new_kernels_at_slice(check, dev, slice_rows)
     check_chain_kernels(check, dev, slice_rows)
 
     fit_cfg = CONFIGS["config1_fit_se500"].fit
@@ -1418,7 +2018,13 @@ def main() -> int:
     path_wall_s = {}
     for path, run in (("exact", lambda: run_main_path(dev)),
                       ("matrix-free", lambda: run_iterative_path(dev)),
-                      *((p, lambda p=p: run_sampler_path(dev, p)) for p in ("mle", "chees", "nuts"))):
+                      *((p, lambda p=p: run_sampler_path(dev, p)) for p in ("mle", "chees", "nuts")),
+                      ("exact-new", lambda: run_new_exact_path(dev)),
+                      ("matrix-free-new", lambda: run_new_iterative_path(dev)),
+                      ("matrix-free-tree", lambda: run_tree_iterative_path(dev)),
+                      *((p, lambda p=p: run_new_sampler_path(dev, p))
+                        for p in ("mle-rq", "chees-matern52")),
+                      ("chains-tree", lambda: run_chains_tree_path(dev))):
         t0 = time.perf_counter()
         _build.launch_counts.clear()
         runs[path] = run()
@@ -1433,6 +2039,11 @@ def main() -> int:
     check_main_path(check, out, fit_cfg.noise, fit_cfg.jitter)
     iter_summary = check_iterative_path(check, iter_out, dev)
     sampler_summary = check_sampler_paths(check, runs, dev)
+    check_new_exact_path(check, runs["exact-new"], dev)
+    iter_summary.update(check_new_iterative_path(check, runs["matrix-free-new"]))
+    iter_summary.update(check_tree_iterative_path(check, runs["matrix-free-tree"]))
+    sampler_summary.update(check_new_sampler_paths(check, runs, dev))
+    check_chains_tree_path(check, runs["chains-tree"])
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1463,7 +2074,9 @@ def main() -> int:
                          if "sfu_floor_ms" in slice_rows[row]},
         **{key: slice_rows[key] for key in (
             "pairwise_k_chains_periodic", "pairwise_jac_chains_periodic",
-            "cholesky_blocked_chains", "value_and_grad_chains")},
+            "cholesky_blocked_chains", "value_and_grad_chains", "tree_jacobian_chains",
+            "pairwise_k_tree_16384", "kernel_matvec_matern52_r8", "kernel_matvec_matern52_r9",
+            "kernel_matvec_tree_r8", *(f"pairwise_k_{fam}_pivot_row" for fam in NEW_FAMILY_OPS))},
         "launches_by_path": launches_by_path,
         "path_wall_s": path_wall_s,
         "samplers": sampler_summary,

@@ -10,7 +10,8 @@ Layer map:
     models/   GP inference (functional core with its chain-batched value and
               gradient, reference-parity GP object, the matrix-free
               iterative_gp: CG solves and SLQ logdet) and kernels
-              (nn.Modules with analytic derivatives; ARD over (n, D))
+              (nn.Modules with analytic derivatives: SE, periodic, Matérn
+              3/2 and 5/2, RQ, Sum/Product trees of them; ARD over (n, D))
     inference/ type-II MLE (L-BFGS / Adam), the hyperparameter posterior
               builders, NUTS and ChEES-HMC over many chains in lockstep,
               warmup adaptation, R-hat / ESS diagnostics
@@ -36,6 +37,9 @@ apply_precision_policy()
 from gaussian_processes_tpu_torch.models.base import Kernel, pairwise_diff  # noqa: E402
 from gaussian_processes_tpu_torch.models.gaussian import GaussianKernel  # noqa: E402
 from gaussian_processes_tpu_torch.models.periodic import PeriodicKernel  # noqa: E402
+from gaussian_processes_tpu_torch.models.matern import Matern32Kernel, Matern52Kernel  # noqa: E402
+from gaussian_processes_tpu_torch.models.rq import RationalQuadraticKernel  # noqa: E402
+from gaussian_processes_tpu_torch.models.composite import ProductKernel, SumKernel  # noqa: E402
 from gaussian_processes_tpu_torch.models.ard import ARDGaussianKernel  # noqa: E402
 from gaussian_processes_tpu_torch.models.iterative_gp import (  # noqa: E402
     IterativePosterior,
@@ -70,6 +74,11 @@ __all__ = [
     "pairwise_diff",
     "GaussianKernel",
     "PeriodicKernel",
+    "Matern32Kernel",
+    "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "SumKernel",
+    "ProductKernel",
     "ARDGaussianKernel",
     "IterativePosterior",
     "fit_iterative",

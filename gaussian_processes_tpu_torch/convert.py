@@ -4,6 +4,11 @@ The JAX package's kernels and posteriors are turned into numpy arrays by the
 caller (``np.asarray(kernel.params)``, ``np.asarray(post.L)``, ...); these
 helpers copy them into the port's counterparts, so both packages can
 compute the same thing on the same values.  Nothing here imports JAX.
+
+A kernel is named by its family and parameters, or by a spec: a leaf
+``(family, params)`` or a tree ``("sum" | "prod", left_spec, right_spec)``,
+so that a JAX ``ProductKernel(GaussianKernel, PeriodicKernel)`` becomes
+``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.
 """
 
 from __future__ import annotations
@@ -12,14 +17,21 @@ import numpy as np
 import torch
 
 from gaussian_processes_tpu_torch.models.ard import ARDGaussianKernel
+from gaussian_processes_tpu_torch.models.composite import ProductKernel, SumKernel
 from gaussian_processes_tpu_torch.models.gaussian import GaussianKernel
 from gaussian_processes_tpu_torch.models.gp import GPPosterior
 from gaussian_processes_tpu_torch.models.iterative_gp import IterativePosterior
+from gaussian_processes_tpu_torch.models.matern import Matern32Kernel, Matern52Kernel
 from gaussian_processes_tpu_torch.models.periodic import PeriodicKernel
+from gaussian_processes_tpu_torch.models.rq import RationalQuadraticKernel
 
 #: kernel family names, as in ``utils.config.KernelConfig.family``, and
 #: "ard" for ``ARDGaussianKernel`` (params (h, w_1..w_D))
-FAMILIES = {"se": GaussianKernel, "periodic": PeriodicKernel, "ard": ARDGaussianKernel}
+FAMILIES = {"se": GaussianKernel, "periodic": PeriodicKernel, "matern32": Matern32Kernel,
+            "matern52": Matern52Kernel, "rq": RationalQuadraticKernel,
+            "ard": ARDGaussianKernel}
+#: the tree nodes of a spec
+COMBINATORS = {"sum": SumKernel, "prod": ProductKernel}
 
 
 def kernel_from_numpy(family: str, params, *, device="cpu",
@@ -31,32 +43,53 @@ def kernel_from_numpy(family: str, params, *, device="cpu",
     return FAMILIES[family].from_params(theta)
 
 
-def posterior_from_numpy(family: str, params, x, y, noise, L, alpha,
+def kernel_from_spec(spec, *, device="cpu", dtype=torch.float64):
+    """The port's kernel of a spec: ``(family, params)`` for a leaf,
+    ``("sum" | "prod", left, right)`` for a tree."""
+    if spec[0] in COMBINATORS:
+        _, left, right = spec
+        return COMBINATORS[spec[0]](kernel_from_spec(left, device=device, dtype=dtype),
+                                    kernel_from_spec(right, device=device, dtype=dtype))
+    family, params = spec
+    return kernel_from_numpy(family, params, device=device, dtype=dtype)
+
+
+def _kernel(family, params, device, dtype):
+    """``family`` with ``params``, or the spec ``family`` when params is None."""
+    if params is None:
+        return kernel_from_spec(family, device=device, dtype=dtype)
+    return kernel_from_numpy(family, params, device=device, dtype=dtype)
+
+
+def posterior_from_numpy(family, params, x, y, noise, L, alpha,
                          log_marginal, *, device="cpu",
                          dtype=torch.float64) -> GPPosterior:
-    """The port's ``GPPosterior`` from the arrays of a JAX ``GPPosterior``."""
+    """The port's ``GPPosterior`` from the arrays of a JAX ``GPPosterior``;
+    the kernel is ``family`` with ``params``, or the spec ``family`` with
+    ``params`` None."""
 
     def t(v):
         return torch.as_tensor(np.array(v), dtype=dtype, device=device)
 
     return GPPosterior(
-        kernel=kernel_from_numpy(family, params, device=device, dtype=dtype),
+        kernel=_kernel(family, params, device, dtype),
         x=t(x), y=t(y), noise=t(noise), L=t(L), alpha=t(alpha),
         log_marginal=t(log_marginal),
     )
 
 
-def iterative_posterior_from_numpy(family: str, params, x, y, noise, alpha,
+def iterative_posterior_from_numpy(family, params, x, y, noise, alpha,
                                    log_marginal, solve_residual, num_probes,
                                    num_iters, *, device="cpu",
                                    dtype=torch.float64) -> IterativePosterior:
-    """The port's ``IterativePosterior`` from the arrays of a JAX one."""
+    """The port's ``IterativePosterior`` from the arrays of a JAX one; the
+    kernel as in ``posterior_from_numpy``."""
 
     def t(v):
         return torch.as_tensor(np.array(v), dtype=dtype, device=device)
 
     return IterativePosterior(
-        kernel=kernel_from_numpy(family, params, device=device, dtype=dtype),
+        kernel=_kernel(family, params, device, dtype),
         x=t(x), y=t(y), noise=t(noise), alpha=t(alpha),
         log_marginal=t(log_marginal), solve_residual=t(solve_residual),
         num_probes=int(num_probes), num_iters=int(num_iters),

@@ -2,8 +2,10 @@
 // kernel of its own: ard_matvec.cuh.)
 //
 // Replaces the Pallas tile bodies of gaussian_processes_tpu/ops/pairwise.py:
-//   B4     _matvec_tile_body      out = K(x, x) V, SE / periodic, 1-D x
-//   B5     _jacvec_tile_body      out[p] = dK/dtheta_p (x, x) U for every p
+//   B4     _matvec_tile_body      out = K(x, x) V, 1-D x: every leaf family
+//                                 and Sum/Product trees of them
+//   B5     _jacvec_tile_body      out[p] = dK/dtheta_p (x, x) U for every p,
+//                                 leaf families only (as the JAX gate)
 //
 // B4 / B5.  K (and dK/dtheta) is never stored: device memory sees x, V and
 // the (P, n, r) output only, so what bounds them on the H100 is arithmetic:
@@ -37,6 +39,16 @@
 //   stochastic gradient solves and differentiates [y, 8 probes], r = 9,
 //   which a chunk of 16 would pad with 7 columns of zeros.
 //
+// Matern: t = |x_i - x_j| s with s = c L / w (c = sqrt(3), sqrt(5); L =
+// log2(e) in float32, 1 in float64), E = base^(-t) = e^(-u) with u = t / L:
+// B4's value is the polynomial in u times E, B5's (1 + u) E (5/2: (1 + u +
+// u^2 / 3) E) and u^2 E (5/2: u^2 (1 + u) E), at d = 0 exactly 1 and 0.  RQ:
+// t = (x_i - x_j) s with s = 1 / (w sqrt(2a)), B = 1 + t^2, B^(-a) =
+// base^(-a log_base B): two special-function results an element; B5's
+// values B^(-a), t^2 B^(-a) / B and B^(-a) (t^2 / B - ln B).  A tree
+// (TreeValue) evaluates the closed forms of closed_forms.cuh through
+// tree_k, scale 1: a sum of products has no factor common to the row.
+//
 // On an H100 80GB HBM3 at 700 W, float32, N = 65536 (kernel_timing.py, one
 // thread per row and the unfolded forms before -> this design): SE B4
 // 2.83 -> 1.18 ms at r = 1 (87% of the special-function floor), 4.27 ->
@@ -57,21 +69,42 @@
 // operator).  Ragged edges are bounds-checked; flat indices are 64-bit
 // (65536^2 > 2^31).
 //
-// The product kernel's 19 instantiations per element type take a while to
-// compile, so the float32 and float64 entry points live in two sources
-// (matvec_f32.cu, matvec_f64.cu) that the build compiles in parallel.
+// The product kernel's instantiations take a while to compile, so SE's and
+// periodic's (19 per element type) live in matvec_f32.cu and matvec_f64.cu
+// with the entry points, and Matern's, RQ's and the tree's (34 per type) in
+// matvec_ext_f32.cu and matvec_ext_f64.cu, four sources that the build
+// compiles in parallel.
 
 #pragma once
 
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "closed_forms.cuh"
 #include "product_common.cuh"
 #include "splits.cuh"
+
+namespace gp {
+
+// B4 / B5 for Matern 3/2, Matern 5/2, RQ and (B4) trees (matvec_ext_f32.cu,
+// matvec_ext_f64.cu): launch_matvec / launch_jacvec below for `family`, or
+// cudaErrorInvalidValue for any other family
+int launch_matvec_ext(const float* x, const float* v, const float* params, float* out,
+                      float* work, int n, int r, int family, const TreeProgram& prog,
+                      int splits, cudaStream_t stream);
+int launch_matvec_ext(const double* x, const double* v, const double* params, double* out,
+                      double* work, int n, int r, int family, const TreeProgram& prog,
+                      int splits, cudaStream_t stream);
+int launch_jacvec_ext(const float* x, const float* u, const float* params, float* out,
+                      float* work, int n, int r, int family, int splits, cudaStream_t stream);
+int launch_jacvec_ext(const double* x, const double* u, const double* params, double* out,
+                      double* work, int n, int r, int family, int splits, cudaStream_t stream);
+
+}  // namespace gp
 
 namespace {
 
@@ -93,8 +126,18 @@ __host__ __device__ constexpr double fold_c2() {
   return sizeof(T) == 4 ? 0.72134752044448170368 : 0.5;
 }
 
+// L, the factor that turns e^(-u) into base^(-L u) with neg_exp's base:
+// log2(e) for float32's ex2, 1 for float64's exp
+template <typename T>
+__host__ __device__ constexpr double fold_base() {
+  return sizeof(T) == 4 ? 1.4426950408889634 : 1.0;
+}
+
 __device__ __forceinline__ void dsincos(float v, float* s, float* c) { sincosf(v, s, c); }
 __device__ __forceinline__ void dsincos(double v, double* s, double* c) { sincos(v, s, c); }
+// the logarithm in neg_exp's base: log2 in float32, ln in float64
+__device__ __forceinline__ float fold_log(float v) { return log2f(v); }
+__device__ __forceinline__ double fold_log(double v) { return log(v); }
 
 // B4, SE: h^2 exp(-d^2 / (2 w^2)) = h^2 base^(-t^2), t = d s
 template <typename T>
@@ -182,6 +225,164 @@ struct PeriodicJac {
   }
 };
 
+// B4, Matern 3/2: h^2 (1 + u) e^(-u) = h^2 (1 + t / L) base^(-t), t = |d| s,
+// s = sqrt(3) L / w
+template <typename T>
+struct Matern32Value {
+  static constexpr int kVals = 1;
+  T s, iL;
+  double scale[kVals];
+  __device__ explicit Matern32Value(const T* th) {
+    const double h = th[0], w = th[1];
+    s = static_cast<T>(gp::kSqrt3 * fold_base<T>() / w);
+    iL = static_cast<T>(1.0 / fold_base<T>());
+    scale[0] = h * h;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = gp::dabs(xi - xj) * s;
+    val[0] = gp::dfma(t, iL, T(1)) * neg_exp(t);
+  }
+};
+
+// B5, Matern 3/2: dK/dh = 2h (1 + u) E, dK/dw = h^2 / w u^2 E
+template <typename T>
+struct Matern32Jac {
+  static constexpr int kVals = 2;
+  T s, iL;
+  double scale[kVals];
+  __device__ explicit Matern32Jac(const T* th) {
+    const double h = th[0], w = th[1];
+    s = static_cast<T>(gp::kSqrt3 * fold_base<T>() / w);
+    iL = static_cast<T>(1.0 / fold_base<T>());
+    scale[0] = 2.0 * h;
+    scale[1] = h * h / w;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = gp::dabs(xi - xj) * s;
+    const T u = t * iL;
+    const T E = neg_exp(t);
+    val[0] = (T(1) + u) * E;
+    val[1] = (u * u) * E;
+  }
+};
+
+// B4, Matern 5/2: h^2 (1 + u + u^2 / 3) e^(-u), t and s as 3/2's with sqrt(5)
+template <typename T>
+struct Matern52Value {
+  static constexpr int kVals = 1;
+  T s, iL;
+  double scale[kVals];
+  __device__ explicit Matern52Value(const T* th) {
+    const double h = th[0], w = th[1];
+    s = static_cast<T>(gp::kSqrt5 * fold_base<T>() / w);
+    iL = static_cast<T>(1.0 / fold_base<T>());
+    scale[0] = h * h;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = gp::dabs(xi - xj) * s;
+    const T u = t * iL;
+    val[0] = gp::dfma(u, gp::dfma(u, T(1) / T(3), T(1)), T(1)) * neg_exp(t);
+  }
+};
+
+// B5, Matern 5/2: dK/dh = 2h (1 + u + u^2 / 3) E,
+// dK/dw = h^2 / (3w) u^2 (1 + u) E
+template <typename T>
+struct Matern52Jac {
+  static constexpr int kVals = 2;
+  T s, iL;
+  double scale[kVals];
+  __device__ explicit Matern52Jac(const T* th) {
+    const double h = th[0], w = th[1];
+    s = static_cast<T>(gp::kSqrt5 * fold_base<T>() / w);
+    iL = static_cast<T>(1.0 / fold_base<T>());
+    scale[0] = 2.0 * h;
+    scale[1] = h * h / (3.0 * w);
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = gp::dabs(xi - xj) * s;
+    const T u = t * iL;
+    const T E = neg_exp(t);
+    val[0] = gp::dfma(u, gp::dfma(u, T(1) / T(3), T(1)), T(1)) * E;
+    val[1] = ((u * u) * (T(1) + u)) * E;
+  }
+};
+
+// B4, RQ: h^2 (1 + d^2 / (2 a w^2))^(-a) = h^2 base^(-a log_base B),
+// B = 1 + t^2, t = d s, s = 1 / (w sqrt(2a))
+template <typename T>
+struct RQValue {
+  static constexpr int kVals = 1;
+  T s, a;
+  double scale[kVals];
+  __device__ explicit RQValue(const T* th) {
+    const double h = th[0], w = th[1], ad = th[2];
+    s = static_cast<T>(1.0 / (w * sqrt(2.0 * ad)));
+    a = th[2];
+    scale[0] = h * h;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = (xi - xj) * s;
+    val[0] = neg_exp(a * fold_log(gp::dfma(t, t, T(1))));
+  }
+};
+
+// B5, RQ: with z = d^2 / (2 w^2) = a t^2, dK/dh = 2h B^-a,
+// dK/dw = 2 h^2 z B^(-a-1) / w = 2 h^2 a / w t^2 B^-a / B,
+// dK/da = h^2 B^-a (z / (aB) - ln B) = h^2 B^-a (t^2 / B - ln B)
+template <typename T>
+struct RQJac {
+  static constexpr int kVals = 3;
+  T s, a, iL;
+  double scale[kVals];
+  __device__ explicit RQJac(const T* th) {
+    const double h = th[0], w = th[1], ad = th[2];
+    s = static_cast<T>(1.0 / (w * sqrt(2.0 * ad)));
+    a = th[2];
+    iL = static_cast<T>(1.0 / fold_base<T>());
+    scale[0] = 2.0 * h;
+    scale[1] = 2.0 * h * h * ad / w;
+    scale[2] = h * h;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    const T t = (xi - xj) * s;
+    const T t2 = t * t;
+    const T B = T(1) + t2;
+    const T lb = fold_log(B);
+    const T Ba = neg_exp(a * lb);
+    const T q = t2 / B;
+    val[0] = Ba;
+    val[1] = q * Ba;
+    val[2] = Ba * (q - lb * iL);
+  }
+};
+
+// B4, a Sum/Product tree: the whole k per element (closed_forms.cuh,
+// tree_k), its parameters read through the pointer
+template <typename T>
+struct TreeValue {
+  static constexpr int kVals = 1;
+  const T* th;
+  gp::TreeProgram prog;
+  double scale[kVals];
+  __device__ TreeValue(const T* params, const gp::TreeProgram& p) : th(params), prog(p) {
+    scale[0] = 1.0;
+  }
+  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
+    val[0] = gp::tree_k(prog, xi - xj, th);
+  }
+};
+
+// an evaluator from the parameters, and the program where it takes one
+template <typename Eval, typename T>
+__device__ __forceinline__ Eval make_eval(const T* params, const gp::TreeProgram& prog) {
+  if constexpr (std::is_constructible_v<Eval, const T*, const gp::TreeProgram&>) {
+    return Eval(params, prog);
+  } else {
+    return Eval(params);
+  }
+}
+
 // -- the block shape ----------------------------------------------------------
 
 // RC, the right-hand sides a block holds: the smallest of 1, 4, 8, 9 that
@@ -226,12 +427,12 @@ template <typename T, typename Eval, int RC, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 product_kernel(const T* __restrict__ x, const T* __restrict__ v,
                const T* __restrict__ params, T* __restrict__ out, int n, int r,
-               int cols_per_split) {
+               int cols_per_split, gp::TreeProgram prog) {
   constexpr int kV = Eval::kVals;
   constexpr int RCP = padded_chunk<T, RC>();
   __shared__ __align__(16) T xt[kTile];
   __shared__ __align__(16) T vt[kTile * RCP];
-  const Eval ev(params);
+  const Eval ev = make_eval<Eval>(params, prog);
   const int row0 = blockIdx.x * (kThreads * ROWS) + threadIdx.x;
   const int c0 = blockIdx.y * RC;
   const int j_begin = blockIdx.z * cols_per_split;
@@ -326,7 +527,8 @@ product_kernel(const T* __restrict__ x, const T* __restrict__ v,
 
 template <typename T, typename Eval, int RC>
 int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
-                      int n, int r, int splits, cudaStream_t stream) {
+                      int n, int r, const gp::TreeProgram& prog, int splits,
+                      cudaStream_t stream) {
   constexpr int ROWS = rows_for(Eval::kVals, RC);
   const int tiles = (n + kTile - 1) / kTile;
   const int tiles_per_split = (tiles + splits - 1) / splits;
@@ -336,60 +538,69 @@ int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   product_kernel<T, Eval, RC, ROWS><<<grid, kThreads, 0, stream>>>(
-      x, v, params, used == 1 ? out : work, n, r, tiles_per_split * kTile);
+      x, v, params, used == 1 ? out : work, n, r, tiles_per_split * kTile, prog);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || used == 1) return static_cast<int>(err);
   return static_cast<int>(gp::launch_sum_splits<T>(
       work, out, static_cast<size_t>(Eval::kVals) * n * r, used, stream));
 }
 
+// `prog`: the tree of a TreeValue, else unused
 template <typename T, typename Eval>
 int launch_product(const T* x, const T* v, const T* params, T* out, T* work,
-                   int n, int r, int splits, cudaStream_t stream) {
+                   int n, int r, const gp::TreeProgram& prog, int splits,
+                   cudaStream_t stream) {
   if (n <= 0 || r <= 0 || splits < 1 || (splits > 1 && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (chunk_for(Eval::kVals, r)) {
     case 1:
-      return launch_product_rc<T, Eval, 1>(x, v, params, out, work, n, r, splits, stream);
+      return launch_product_rc<T, Eval, 1>(x, v, params, out, work, n, r, prog, splits, stream);
     case 4:
-      return launch_product_rc<T, Eval, 4>(x, v, params, out, work, n, r, splits, stream);
+      return launch_product_rc<T, Eval, 4>(x, v, params, out, work, n, r, prog, splits, stream);
     case 8:
-      return launch_product_rc<T, Eval, 8>(x, v, params, out, work, n, r, splits, stream);
+      return launch_product_rc<T, Eval, 8>(x, v, params, out, work, n, r, prog, splits, stream);
     case 9:
-      return launch_product_rc<T, Eval, 9>(x, v, params, out, work, n, r, splits, stream);
+      return launch_product_rc<T, Eval, 9>(x, v, params, out, work, n, r, prog, splits, stream);
     default:
       if constexpr (Eval::kVals * 16 <= kAccBudget) {
-        return launch_product_rc<T, Eval, 16>(x, v, params, out, work, n, r, splits, stream);
+        return launch_product_rc<T, Eval, 16>(x, v, params, out, work, n, r, prog, splits,
+                                              stream);
       }
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// `prog`: a family kTree program, else unused
 template <typename T>
 int launch_matvec(const T* x, const T* v, const T* params, T* out, T* work,
-                  int n, int r, int family, int splits, cudaStream_t stream) {
+                  int n, int r, int family, const gp::TreeProgram& prog, int splits,
+                  cudaStream_t stream) {
   switch (family) {
     case gp::kSE:
-      return launch_product<T, SEValue<T>>(x, v, params, out, work, n, r, splits, stream);
+      return launch_product<T, SEValue<T>>(x, v, params, out, work, n, r, prog, splits,
+                                           stream);
     case gp::kPeriodic:
-      return launch_product<T, PeriodicValue<T>>(x, v, params, out, work, n, r, splits,
+      return launch_product<T, PeriodicValue<T>>(x, v, params, out, work, n, r, prog, splits,
                                                  stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    default:  // Matern, RQ, trees; anything else is refused there
+      return gp::launch_matvec_ext(x, v, params, out, work, n, r, family, prog, splits,
+                                   stream);
   }
 }
 
 template <typename T>
 int launch_jacvec(const T* x, const T* u, const T* params, T* out, T* work,
                   int n, int r, int family, int splits, cudaStream_t stream) {
+  const gp::TreeProgram none{};
   switch (family) {
     case gp::kSE:
-      return launch_product<T, SEJac<T>>(x, u, params, out, work, n, r, splits, stream);
+      return launch_product<T, SEJac<T>>(x, u, params, out, work, n, r, none, splits, stream);
     case gp::kPeriodic:
-      return launch_product<T, PeriodicJac<T>>(x, u, params, out, work, n, r, splits, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_product<T, PeriodicJac<T>>(x, u, params, out, work, n, r, none, splits,
+                                               stream);
+    default:  // Matern, RQ; anything else is refused there
+      return gp::launch_jacvec_ext(x, u, params, out, work, n, r, family, splits, stream);
   }
 }
 

@@ -1,0 +1,48 @@
+// B4, B5 for Matern 3/2, Matern 5/2, RQ and (B4) Sum/Product trees, float64
+// (the kernels: matvec.cuh).
+
+#include "matvec.cuh"
+
+namespace gp {
+
+int launch_matvec_ext(const double* x, const double* v, const double* params, double* out,
+                      double* work, int n, int r, int family, const TreeProgram& prog,
+                      int splits, cudaStream_t stream) {
+  using T = double;
+  switch (family) {
+    case kMatern32:
+      return launch_product<T, Matern32Value<T>>(x, v, params, out, work, n, r, prog, splits,
+                                                 stream);
+    case kMatern52:
+      return launch_product<T, Matern52Value<T>>(x, v, params, out, work, n, r, prog, splits,
+                                                 stream);
+    case kRQ:
+      return launch_product<T, RQValue<T>>(x, v, params, out, work, n, r, prog, splits,
+                                           stream);
+    case kTree:
+      return launch_product<T, TreeValue<T>>(x, v, params, out, work, n, r, prog, splits,
+                                             stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_jacvec_ext(const double* x, const double* u, const double* params, double* out,
+                      double* work, int n, int r, int family, int splits, cudaStream_t stream) {
+  using T = double;
+  const TreeProgram none{};
+  switch (family) {
+    case kMatern32:
+      return launch_product<T, Matern32Jac<T>>(x, u, params, out, work, n, r, none, splits,
+                                               stream);
+    case kMatern52:
+      return launch_product<T, Matern52Jac<T>>(x, u, params, out, work, n, r, none, splits,
+                                               stream);
+    case kRQ:
+      return launch_product<T, RQJac<T>>(x, u, params, out, work, n, r, none, splits, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace gp

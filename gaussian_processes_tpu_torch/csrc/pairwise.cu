@@ -1,185 +1,9 @@
-// B1, B2a, B2b: pairwise covariance and its hyperparameter derivatives.
-//
-// Replaces the Pallas tile bodies of gaussian_processes_tpu/ops/pairwise.py:
-//   B1  _tile_body       K[i, j] = k(x1_i - x2_j; theta) (+ s^2 + jitter on
-//                        the global diagonal)
-//   B2a _jac_tile_body   dK/dtheta_p, one (n, m) plane per parameter
-//   B2b _hess_tile_body  d2K/dtheta_p dtheta_q, all P x P planes or one
-//
-// Bound on the H100: the HBM write of the output, n * m * sizeof(T) bytes per
-// plane (16384^2 f32 = 1.07 GB, about 0.32 ms at 3.35 TB/s).  Each element
-// costs one subtraction and a closed form of a few flops and one or two
-// transcendentals, far below the card's arithmetic rate, and the inputs are
-// two vectors of n + m values.  So the designs keep every output element in
-// registers from evaluation to store and make each store coalesce.  The
-// hyperparameters are read from device memory through a pointer, so the
-// host never synchronises to read them.
-//
-// B1: a block of 128 threads spans 128 neighbouring columns, each thread
-// keeps its x2 value in a register and walks kRows rows, and x1[row] is one
-// broadcast load for the whole warp.  Ragged edges are masked; the diagonal
-// is row == col on global indices (the TPU body needed iota masks for this).
-//
-// B2a, B2b: one tile kernel over what an element evaluates (Eval): the P
-// Jacobian values (B2a), the P(P+1)/2 upper-triangle Hessian values stored
-// to all P x P planes (B2b, every plane from one evaluation of E), or one
-// Hessian value (B2b for hessian_pair, whose callers rely on one-slice peak
-// memory), a template per upper-triangle entry that evaluates that value's
-// closed form alone (closed_forms.cuh, HessValue).  A block of 256 threads
-// covers kDerivRows rows by 32 C columns, C = 16 bytes / sizeof(T): the
-// block stages its rows' x1 in shared memory, a thread keeps its C columns'
-// x2 in registers and walks kDerivRowsPerWarp rows, unrolled, and the C
-// values of a plane's row go out as one 16-byte store (per element where
-// m % C != 0 leaves rows unaligned).  The forms keep the accurate expf /
-// sinf.
-//
-// Chains: the samplers evaluate C parameter vectors at once (the JAX
-// package vmaps the Pallas calls).  B1 and B2a take a (C, stride) parameter
-// table in one launch, chain c = blockIdx.z reading its row and writing its
-// own output at c times the output's size; every chain shares x.  The work
-// and the bound are C times one matrix's, and at the samplers' N=500 one
-// matrix alone (1 MB) would fill a few dozen blocks of the card.
+// B1, B2a, B2b: the entry points, B1 for every family and B2a / B2b for SE
+// and periodic (the kernels and their design: pairwise.cuh).
 
-#include <algorithm>
-#include <cstddef>
-#include <cstdint>
-
-#include <cuda_runtime.h>
-
-#include "closed_forms.cuh"
-#include "product_common.cuh"
+#include "pairwise.cuh"
 
 namespace {
-
-constexpr int kCols = 128;  // B1: threads per block, one column each
-constexpr int kRows = 16;   // B1: rows walked by each thread
-constexpr int kMaxGridY = 65535;
-constexpr int kDerivWarps = 8;                                  // B2: warps per block
-constexpr int kDerivThreads = 32 * kDerivWarps;                 // B2: threads per block
-constexpr int kDerivRowsPerWarp = 4;                            // B2: rows each thread walks
-constexpr int kDerivRows = kDerivWarps * kDerivRowsPerWarp;     // B2: rows per block
-
-// chain c = blockIdx.z reads row c of the parameter table (params + c *
-// stride: P kernel parameters, then the diagonal term) and writes the c-th
-// (n, m) matrix; one matrix is the case gridDim.z = 1
-template <typename T, typename Form>
-__global__ void __launch_bounds__(kCols)
-pairwise_k_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                  const T* __restrict__ params, T* __restrict__ out,
-                  int n, int m, int with_diag, int stride) {
-  const int col = blockIdx.x * kCols + threadIdx.x;
-  if (col >= m) return;
-  params += static_cast<size_t>(blockIdx.z) * stride;
-  out += static_cast<size_t>(blockIdx.z) * n * m;
-  T th[Form::P];
-#pragma unroll
-  for (int q = 0; q < Form::P; ++q) th[q] = params[q];
-  const T diag = with_diag ? params[Form::P] : T(0);
-  const T xc = x2[col];
-  for (int rb = blockIdx.y; rb * kRows < n; rb += gridDim.y) {
-    const int row0 = rb * kRows;
-    const int rows = min(kRows, n - row0);
-    for (int r = 0; r < rows; ++r) {
-      const int row = row0 + r;
-      T v = Form::k(x1[row] - xc, th);
-      if (with_diag && row == col) v += diag;
-      out[static_cast<size_t>(row) * m + col] = v;
-    }
-  }
-}
-
-// -- B2: what an element evaluates, and which value each output plane takes
-
-// position of (p, q), p <= q, in hess's row-major upper triangle
-__host__ __device__ constexpr int tri(int p, int q, int P) {
-  return p * P - p * (p - 1) / 2 + (q - p);
-}
-
-// B2a (Order 1): the P planes of dK/dtheta; B2b (Order 2): the P x P planes
-// of d2K/dtheta2, filled from the upper triangle
-template <typename T, typename Form, int Order>
-struct FormEval {
-  static constexpr int P = Form::P;
-  static constexpr int kVals = Order == 1 ? P : P * (P + 1) / 2;
-  static constexpr int kPlanes = Order == 1 ? P : P * P;
-  __host__ __device__ static constexpr int src(int k) {
-    return Order == 1 ? k : (k / P <= k % P ? tri(k / P, k % P, P) : tri(k % P, k / P, P));
-  }
-  T th[P];
-  __device__ explicit FormEval(const T* params) {
-#pragma unroll
-    for (int q = 0; q < P; ++q) th[q] = params[q];
-  }
-  __device__ __forceinline__ void eval(T d, T (&val)[kVals]) const {
-    if constexpr (Order == 1) {
-      Form::jac(d, th, val);
-    } else {
-      Form::hess(d, th, val);
-    }
-  }
-};
-
-template <typename T, typename Value>
-struct PlaneEval {  // B2b: one plane, one closed form
-  static constexpr int kVals = 1;
-  static constexpr int kPlanes = 1;
-  __host__ __device__ static constexpr int src(int) { return 0; }
-  Value value;
-  __device__ explicit PlaneEval(const T* params) : value(params) {}
-  __device__ __forceinline__ void eval(T d, T (&val)[kVals]) const { val[0] = value(d); }
-};
-
-// out[k][i][j] = val_src(k)(x1_i - x2_j), k < kPlanes.  One block per SM as
-// the launch bound's floor: without it ptxas caps the registers and spills
-// (float64's one-plane instantiations)
-// Chain c = blockIdx.z reads row c of the parameter table (params + c *
-// stride) and writes its kPlanes planes at out + c * kPlanes * n * m; the
-// offset keeps a plane's rows 16-byte aligned whenever m % C == 0.
-template <typename T, typename Eval>
-__global__ void __launch_bounds__(kDerivThreads, 1)
-pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                      const T* __restrict__ params, T* __restrict__ out, int n, int m,
-                      int stride) {
-  constexpr int C = vec_elems<T>();
-  constexpr int kV = Eval::kVals;
-  __shared__ T xr[kDerivRows];
-  const size_t plane = static_cast<size_t>(n) * m;
-  params += static_cast<size_t>(blockIdx.z) * stride;
-  out += static_cast<size_t>(blockIdx.z) * Eval::kPlanes * plane;
-  const Eval ev(params);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * (32 * C) + lane * C;
-  T xc[C];  // columns past m compute with column m - 1 and store nothing
-#pragma unroll
-  for (int c = 0; c < C; ++c) xc[c] = x2[min(col0 + c, m - 1)];
-  const int valid = m - col0;
-  const bool vec = m % C == 0;
-  for (int rb = blockIdx.y; rb * kDerivRows < n; rb += gridDim.y) {
-    const int row_base = rb * kDerivRows;
-    __syncthreads();  // every thread is done with the previous rows
-    if (threadIdx.x < kDerivRows) xr[threadIdx.x] = x1[min(row_base + threadIdx.x, n - 1)];
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kDerivRowsPerWarp; ++q) {
-      const int ii = q * kDerivWarps + warp;  // the block's warps write neighbouring rows
-      const int row = row_base + ii;
-      if (row >= n) break;
-      const T xi = xr[ii];
-      T vals[kV][C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        T val[kV];
-        ev.eval(xi - xc[c], val);
-#pragma unroll
-        for (int p = 0; p < kV; ++p) vals[p][c] = val[p];
-      }
-      T* o = out + static_cast<size_t>(row) * m + col0;
-#pragma unroll
-      for (int k = 0; k < Eval::kPlanes; ++k) stv(o + k * plane, vals[Eval::src(k)], valid, vec);
-    }
-  }
-}
 
 dim3 grid_for(int n, int m, int chains) {
   const int gx = (m + kCols - 1) / kCols;
@@ -187,11 +11,25 @@ dim3 grid_for(int n, int m, int chains) {
   return dim3(gx, gy, chains);
 }
 
+template <typename T, typename Eval>
+void launch_k_eval(const T* x1, const T* x2, const T* params, T* out, int n, int m,
+                   int chains, int stride, int with_diag, const gp::TreeProgram& prog,
+                   cudaStream_t stream) {
+  pairwise_k_kernel<T, Eval><<<grid_for(n, m, chains), kCols, 0, stream>>>(
+      x1, x2, params, out, n, m, with_diag, stride, prog);
+}
+
+// `tree`: the host encoding of a family kTree program (closed_forms.cuh,
+// parse_tree), else unused
 template <typename T>
 int launch_k(int device, const void* x1, const void* x2, const void* params, void* out,
-             int n, int m, int chains, int stride, int family, int with_diag,
-             void* stream) {
+             int n, int m, int chains, int stride, int family, const int* tree,
+             int with_diag, void* stream) {
   if (n <= 0 || m <= 0 || chains <= 0 || chains > kMaxGridY || stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  gp::TreeProgram prog{};
+  if (family == gp::kTree && !gp::parse_tree(tree, &prog)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
@@ -201,67 +39,34 @@ int launch_k(int device, const void* x1, const void* x2, const void* params, voi
   const T* th = static_cast<const T*>(params);
   T* o = static_cast<T*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(n, m, chains);
   switch (family) {
     case gp::kSE:
-      pairwise_k_kernel<T, gp::SEForm<T>><<<grid, kCols, 0, st>>>(
-          a, b, th, o, n, m, with_diag, stride);
+      launch_k_eval<T, LeafK<T, gp::SEForm<T>>>(a, b, th, o, n, m, chains, stride, with_diag,
+                                                prog, st);
       break;
     case gp::kPeriodic:
-      pairwise_k_kernel<T, gp::PeriodicForm<T>><<<grid, kCols, 0, st>>>(
-          a, b, th, o, n, m, with_diag, stride);
+      launch_k_eval<T, LeafK<T, gp::PeriodicForm<T>>>(a, b, th, o, n, m, chains, stride,
+                                                      with_diag, prog, st);
+      break;
+    case gp::kMatern32:
+      launch_k_eval<T, LeafK<T, gp::Matern32Form<T>>>(a, b, th, o, n, m, chains, stride,
+                                                      with_diag, prog, st);
+      break;
+    case gp::kMatern52:
+      launch_k_eval<T, LeafK<T, gp::Matern52Form<T>>>(a, b, th, o, n, m, chains, stride,
+                                                      with_diag, prog, st);
+      break;
+    case gp::kRQ:
+      launch_k_eval<T, LeafK<T, gp::RQForm<T>>>(a, b, th, o, n, m, chains, stride, with_diag,
+                                                prog, st);
+      break;
+    case gp::kTree:
+      launch_k_eval<T, TreeK<T>>(a, b, th, o, n, m, chains, stride, with_diag, prog, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// the launch geometry of B2: `chains` parameter rows `stride` apart (the
-// Hessian's callers pass one row)
-struct DerivLaunch {
-  int n, m, chains, stride;
-  cudaStream_t stream;
-};
-
-template <typename T, typename Eval>
-int launch_deriv_eval(const T* x1, const T* x2, const T* params, T* out,
-                      const DerivLaunch& g) {
-  constexpr int C = vec_elems<T>();
-  const dim3 grid((g.m + 32 * C - 1) / (32 * C),
-                  std::min((g.n + kDerivRows - 1) / kDerivRows, kMaxGridY), g.chains);
-  pairwise_deriv_kernel<T, Eval><<<grid, kDerivThreads, 0, g.stream>>>(
-      x1, x2, params, out, g.n, g.m, g.stride);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// one Hessian plane: the upper-triangle value V, for V = 0 .. Vals - 1
-template <typename T, typename Form, int V, int Vals>
-int launch_hess_value(const T* x1, const T* x2, const T* params, T* out, int value,
-                      const DerivLaunch& g) {
-  if constexpr (V < Vals) {
-    if (value == V) {
-      return launch_deriv_eval<T, PlaneEval<T, typename Form::template HessValue<V>>>(
-          x1, x2, params, out, g);
-    }
-    return launch_hess_value<T, Form, V + 1, Vals>(x1, x2, params, out, value, g);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// order 1: the Jacobian; order 2 and value < 0: every Hessian plane; order 2
-// and value >= 0: the plane of that upper-triangle value
-template <typename T, typename Form>
-int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out, int order,
-                      int value, const DerivLaunch& g) {
-  if (order == 1) {
-    return launch_deriv_eval<T, FormEval<T, Form, 1>>(x1, x2, params, out, g);
-  }
-  if (value < 0) {
-    return launch_deriv_eval<T, FormEval<T, Form, 2>>(x1, x2, params, out, g);
-  }
-  return launch_hess_value<T, Form, 0, FormEval<T, Form, 2>::kVals>(x1, x2, params, out,
-                                                                     value, g);
 }
 
 template <typename T>
@@ -278,14 +83,14 @@ int launch_deriv(int device, const void* x1, const void* x2, const void* params,
   const T* b = static_cast<const T*>(x2);
   const T* th = static_cast<const T*>(params);
   T* o = static_cast<T*>(out);
-  const DerivLaunch g{n, m, chains, stride, static_cast<cudaStream_t>(stream)};
+  const gp::DerivLaunch g{n, m, chains, stride, static_cast<cudaStream_t>(stream)};
   switch (family) {
     case gp::kSE:
       return launch_deriv_form<T, gp::SEForm<T>>(a, b, th, o, order, value, g);
     case gp::kPeriodic:
       return launch_deriv_form<T, gp::PeriodicForm<T>>(a, b, th, o, order, value, g);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    default:  // Matern 3/2, Matern 5/2, RQ; anything else is refused there
+      return gp::launch_deriv_ext(a, b, th, o, family, order, value, g);
   }
 }
 
@@ -296,38 +101,43 @@ extern "C" {
 // Each entry point returns cudaGetLastError() after its launch (0 = success).
 // Pointers are device pointers.
 
+// `family` is a gp::Family; for kTree, `tree` is the program's host encoding
+// (parse_tree) and params the leaves' parameters in its order
 int gp_pairwise_k_f32(int device, const void* x1, const void* x2,
                       const void* params, void* out, int n, int m, int family,
-                      int with_diag, void* stream) {
-  return launch_k<float>(device, x1, x2, params, out, n, m, 1, 0, family, with_diag, stream);
+                      const int* tree, int with_diag, void* stream) {
+  return launch_k<float>(device, x1, x2, params, out, n, m, 1, 0, family, tree, with_diag,
+                         stream);
 }
 
 int gp_pairwise_k_f64(int device, const void* x1, const void* x2,
                       const void* params, void* out, int n, int m, int family,
-                      int with_diag, void* stream) {
-  return launch_k<double>(device, x1, x2, params, out, n, m, 1, 0, family, with_diag, stream);
+                      const int* tree, int with_diag, void* stream) {
+  return launch_k<double>(device, x1, x2, params, out, n, m, 1, 0, family, tree, with_diag,
+                          stream);
 }
 
 // B1 over a (chains, stride) parameter table, one launch: row c holds chain
-// c's P kernel parameters and, with `with_diag`, its diagonal term s_c^2 +
-// jitter at column P; out is (chains, n, m)
+// c's P kernel parameters (a tree's leaves' parameters, concatenated) and,
+// with `with_diag`, its diagonal term s_c^2 + jitter at column P; out is
+// (chains, n, m)
 int gp_pairwise_k_chains_f32(int device, const void* x1, const void* x2, const void* table,
                              void* out, int n, int m, int chains, int stride, int family,
-                             int with_diag, void* stream) {
-  return launch_k<float>(device, x1, x2, table, out, n, m, chains, stride, family, with_diag,
-                         stream);
+                             const int* tree, int with_diag, void* stream) {
+  return launch_k<float>(device, x1, x2, table, out, n, m, chains, stride, family, tree,
+                         with_diag, stream);
 }
 
 int gp_pairwise_k_chains_f64(int device, const void* x1, const void* x2, const void* table,
                              void* out, int n, int m, int chains, int stride, int family,
-                             int with_diag, void* stream) {
-  return launch_k<double>(device, x1, x2, table, out, n, m, chains, stride, family, with_diag,
-                          stream);
+                             const int* tree, int with_diag, void* stream) {
+  return launch_k<double>(device, x1, x2, table, out, n, m, chains, stride, family, tree,
+                          with_diag, stream);
 }
 
-// order 1: dK/dtheta, (P, n, m); order 2: `value` < 0 gives every plane of
-// d2K/dtheta2, (P, P, n, m), else the (n, m) plane of that upper-triangle
-// value (row-major over p <= q)
+// B2 takes leaf families only.  Order 1: dK/dtheta, (P, n, m); order 2:
+// `value` < 0 gives every plane of d2K/dtheta2, (P, P, n, m), else the
+// (n, m) plane of that upper-triangle value (row-major over p <= q)
 int gp_pairwise_deriv_f32(int device, const void* x1, const void* x2, const void* params,
                           void* out, int n, int m, int family, int order, int value,
                           void* stream) {

@@ -1,0 +1,276 @@
+// B1, B2a, B2b: pairwise covariance and its hyperparameter derivatives.
+//
+// Replaces the Pallas tile bodies of gaussian_processes_tpu/ops/pairwise.py:
+//   B1  _tile_body       K[i, j] = k(x1_i - x2_j; theta) (+ s^2 + jitter on
+//                        the global diagonal)
+//   B2a _jac_tile_body   dK/dtheta_p, one (n, m) plane per parameter
+//   B2b _hess_tile_body  d2K/dtheta_p dtheta_q, all P x P planes or one
+//
+// Bound on the H100: the HBM write of the output, n * m * sizeof(T) bytes per
+// plane (16384^2 f32 = 1.07 GB, about 0.32 ms at 3.35 TB/s).  Each element
+// costs one subtraction and a closed form of a few flops and one or two
+// transcendentals, far below the card's arithmetic rate, and the inputs are
+// two vectors of n + m values.  So the designs keep every output element in
+// registers from evaluation to store and make each store coalesce.  The
+// hyperparameters are read from device memory through a pointer, so the
+// host never synchronises to read them.
+//
+// B1: a block of 128 threads spans 128 neighbouring columns, each thread
+// keeps its x2 value in a register and walks kRows rows, and x1[row] is one
+// broadcast load for the whole warp.  Ragged edges are masked; the diagonal
+// is row == col on global indices (the TPU body needed iota masks for this).
+//
+// B2a, B2b: one tile kernel over what an element evaluates (Eval): the P
+// Jacobian values (B2a), the P(P+1)/2 upper-triangle Hessian values stored
+// to all P x P planes (B2b, every plane from one evaluation of E), or one
+// Hessian value (B2b for hessian_pair, whose callers rely on one-slice peak
+// memory), a template per upper-triangle entry that evaluates that value's
+// closed form alone (closed_forms.cuh, HessValue).  A block of 256 threads
+// covers kDerivRows rows by 32 C columns, C = 16 bytes / sizeof(T): the
+// block stages its rows' x1 in shared memory, a thread keeps its C columns'
+// x2 in registers and walks kDerivRowsPerWarp rows, unrolled, and the C
+// values of a plane's row go out as one 16-byte store (per element where
+// m % C != 0 leaves rows unaligned).  The forms keep the accurate expf /
+// sinf.
+//
+// Chains: the samplers evaluate C parameter vectors at once (the JAX
+// package vmaps the Pallas calls).  B1 and B2a take a (C, stride) parameter
+// table in one launch, chain c = blockIdx.z reading its row and writing its
+// own output at c times the output's size; every chain shares x.  The work
+// and the bound are C times one matrix's, and at the samplers' N=500 one
+// matrix alone (1 MB) would fill a few dozen blocks of the card.
+//
+// Families: B1 evaluates every leaf form of closed_forms.cuh and, as
+// kTree, a Sum/Product tree of them (TreeK: the program by value, the
+// parameters through the pointer, the whole k per element), single and
+// over the chain table.  B2a and B2b take the leaves only: the JAX package
+// builds a tree's derivatives at matrix level from its children
+// (models/composite.py).  The kernels are templates over the element's
+// evaluator; pairwise.cu instantiates B1 and SE's and periodic's B2,
+// pairwise_ext_f32.cu / pairwise_ext_f64.cu the other families' B2, so the
+// build compiles them in parallel.
+
+#pragma once
+
+#include <algorithm>
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "closed_forms.cuh"
+#include "product_common.cuh"
+
+namespace gp {
+
+// the launch geometry of B2: `chains` parameter rows `stride` apart (the
+// Hessian's callers pass one row)
+struct DerivLaunch {
+  int n, m, chains, stride;
+  cudaStream_t stream;
+};
+
+// B2 for Matern 3/2, Matern 5/2 and RQ (pairwise_ext_f32.cu,
+// pairwise_ext_f64.cu): as launch_deriv_form below for `family`, or
+// cudaErrorInvalidValue for any other family
+int launch_deriv_ext(const float* x1, const float* x2, const float* params, float* out,
+                     int family, int order, int value, const DerivLaunch& g);
+int launch_deriv_ext(const double* x1, const double* x2, const double* params, double* out,
+                     int family, int order, int value, const DerivLaunch& g);
+
+}  // namespace gp
+
+namespace {
+
+constexpr int kCols = 128;  // B1: threads per block, one column each
+constexpr int kRows = 16;   // B1: rows walked by each thread
+constexpr int kMaxGridY = 65535;
+constexpr int kDerivWarps = 8;                                  // B2: warps per block
+constexpr int kDerivThreads = 32 * kDerivWarps;                 // B2: threads per block
+constexpr int kDerivRowsPerWarp = 4;                            // B2: rows each thread walks
+constexpr int kDerivRows = kDerivWarps * kDerivRowsPerWarp;     // B2: rows per block
+
+// B1's element: one leaf's closed form, its parameters in registers ...
+template <typename T, typename Form>
+struct LeafK {
+  T th[Form::P];
+  __device__ LeafK(const T* params, const gp::TreeProgram&) {
+#pragma unroll
+    for (int q = 0; q < Form::P; ++q) th[q] = params[q];
+  }
+  __device__ __forceinline__ int n_params() const { return Form::P; }
+  __device__ __forceinline__ T operator()(T d) const { return Form::k(d, th); }
+};
+
+// ... or a tree's (closed_forms.cuh, tree_k), its parameters read through the
+// pointer: every thread of a warp loads the same address
+template <typename T>
+struct TreeK {
+  const T* th;
+  gp::TreeProgram prog;
+  __device__ TreeK(const T* params, const gp::TreeProgram& p) : th(params), prog(p) {}
+  __device__ __forceinline__ int n_params() const { return prog.n_params; }
+  __device__ __forceinline__ T operator()(T d) const { return gp::tree_k(prog, d, th); }
+};
+
+// chain c = blockIdx.z reads row c of the parameter table (params + c *
+// stride: the kernel's parameters, then the diagonal term) and writes the
+// c-th (n, m) matrix; one matrix is the case gridDim.z = 1
+template <typename T, typename Eval>
+__global__ void __launch_bounds__(kCols)
+pairwise_k_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
+                  const T* __restrict__ params, T* __restrict__ out,
+                  int n, int m, int with_diag, int stride, gp::TreeProgram prog) {
+  const int col = blockIdx.x * kCols + threadIdx.x;
+  if (col >= m) return;
+  params += static_cast<size_t>(blockIdx.z) * stride;
+  out += static_cast<size_t>(blockIdx.z) * n * m;
+  const Eval ev(params, prog);
+  const T diag = with_diag ? params[ev.n_params()] : T(0);
+  const T xc = x2[col];
+  for (int rb = blockIdx.y; rb * kRows < n; rb += gridDim.y) {
+    const int row0 = rb * kRows;
+    const int rows = min(kRows, n - row0);
+    for (int r = 0; r < rows; ++r) {
+      const int row = row0 + r;
+      T v = ev(x1[row] - xc);
+      if (with_diag && row == col) v += diag;
+      out[static_cast<size_t>(row) * m + col] = v;
+    }
+  }
+}
+
+// -- B2: what an element evaluates, and which value each output plane takes
+
+// position of (p, q), p <= q, in hess's row-major upper triangle
+__host__ __device__ constexpr int tri(int p, int q, int P) {
+  return p * P - p * (p - 1) / 2 + (q - p);
+}
+
+// B2a (Order 1): the P planes of dK/dtheta; B2b (Order 2): the P x P planes
+// of d2K/dtheta2, filled from the upper triangle
+template <typename T, typename Form, int Order>
+struct FormEval {
+  static constexpr int P = Form::P;
+  static constexpr int kVals = Order == 1 ? P : P * (P + 1) / 2;
+  static constexpr int kPlanes = Order == 1 ? P : P * P;
+  __host__ __device__ static constexpr int src(int k) {
+    return Order == 1 ? k : (k / P <= k % P ? tri(k / P, k % P, P) : tri(k % P, k / P, P));
+  }
+  T th[P];
+  __device__ explicit FormEval(const T* params) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) th[q] = params[q];
+  }
+  __device__ __forceinline__ void eval(T d, T (&val)[kVals]) const {
+    if constexpr (Order == 1) {
+      Form::jac(d, th, val);
+    } else {
+      Form::hess(d, th, val);
+    }
+  }
+};
+
+template <typename T, typename Value>
+struct PlaneEval {  // B2b: one plane, one closed form
+  static constexpr int kVals = 1;
+  static constexpr int kPlanes = 1;
+  __host__ __device__ static constexpr int src(int) { return 0; }
+  Value value;
+  __device__ explicit PlaneEval(const T* params) : value(params) {}
+  __device__ __forceinline__ void eval(T d, T (&val)[kVals]) const { val[0] = value(d); }
+};
+
+// out[k][i][j] = val_src(k)(x1_i - x2_j), k < kPlanes.  One block per SM as
+// the launch bound's floor: without it ptxas caps the registers and spills
+// (float64's one-plane instantiations)
+// Chain c = blockIdx.z reads row c of the parameter table (params + c *
+// stride) and writes its kPlanes planes at out + c * kPlanes * n * m; the
+// offset keeps a plane's rows 16-byte aligned whenever m % C == 0.
+template <typename T, typename Eval>
+__global__ void __launch_bounds__(kDerivThreads, 1)
+pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
+                      const T* __restrict__ params, T* __restrict__ out, int n, int m,
+                      int stride) {
+  constexpr int C = vec_elems<T>();
+  constexpr int kV = Eval::kVals;
+  __shared__ T xr[kDerivRows];
+  const size_t plane = static_cast<size_t>(n) * m;
+  params += static_cast<size_t>(blockIdx.z) * stride;
+  out += static_cast<size_t>(blockIdx.z) * Eval::kPlanes * plane;
+  const Eval ev(params);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.x * (32 * C) + lane * C;
+  T xc[C];  // columns past m compute with column m - 1 and store nothing
+#pragma unroll
+  for (int c = 0; c < C; ++c) xc[c] = x2[min(col0 + c, m - 1)];
+  const int valid = m - col0;
+  const bool vec = m % C == 0;
+  for (int rb = blockIdx.y; rb * kDerivRows < n; rb += gridDim.y) {
+    const int row_base = rb * kDerivRows;
+    __syncthreads();  // every thread is done with the previous rows
+    if (threadIdx.x < kDerivRows) xr[threadIdx.x] = x1[min(row_base + threadIdx.x, n - 1)];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kDerivRowsPerWarp; ++q) {
+      const int ii = q * kDerivWarps + warp;  // the block's warps write neighbouring rows
+      const int row = row_base + ii;
+      if (row >= n) break;
+      const T xi = xr[ii];
+      T vals[kV][C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        T val[kV];
+        ev.eval(xi - xc[c], val);
+#pragma unroll
+        for (int p = 0; p < kV; ++p) vals[p][c] = val[p];
+      }
+      T* o = out + static_cast<size_t>(row) * m + col0;
+#pragma unroll
+      for (int k = 0; k < Eval::kPlanes; ++k) stv(o + k * plane, vals[Eval::src(k)], valid, vec);
+    }
+  }
+}
+
+template <typename T, typename Eval>
+int launch_deriv_eval(const T* x1, const T* x2, const T* params, T* out,
+                      const gp::DerivLaunch& g) {
+  constexpr int C = vec_elems<T>();
+  const dim3 grid((g.m + 32 * C - 1) / (32 * C),
+                  std::min((g.n + kDerivRows - 1) / kDerivRows, kMaxGridY), g.chains);
+  pairwise_deriv_kernel<T, Eval><<<grid, kDerivThreads, 0, g.stream>>>(
+      x1, x2, params, out, g.n, g.m, g.stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one Hessian plane: the upper-triangle value V, for V = 0 .. Vals - 1
+template <typename T, typename Form, int V, int Vals>
+int launch_hess_value(const T* x1, const T* x2, const T* params, T* out, int value,
+                      const gp::DerivLaunch& g) {
+  if constexpr (V < Vals) {
+    if (value == V) {
+      return launch_deriv_eval<T, PlaneEval<T, typename Form::template HessValue<V>>>(
+          x1, x2, params, out, g);
+    }
+    return launch_hess_value<T, Form, V + 1, Vals>(x1, x2, params, out, value, g);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// order 1: the Jacobian; order 2 and value < 0: every Hessian plane; order 2
+// and value >= 0: the plane of that upper-triangle value
+template <typename T, typename Form>
+int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out, int order,
+                      int value, const gp::DerivLaunch& g) {
+  if (order == 1) {
+    return launch_deriv_eval<T, FormEval<T, Form, 1>>(x1, x2, params, out, g);
+  }
+  if (value < 0) {
+    return launch_deriv_eval<T, FormEval<T, Form, 2>>(x1, x2, params, out, g);
+  }
+  return launch_hess_value<T, Form, 0, FormEval<T, Form, 2>::kVals>(x1, x2, params, out,
+                                                                     value, g);
+}
+
+}  // namespace

@@ -3,6 +3,9 @@
 from gaussian_processes_tpu_torch.models.base import Kernel, pairwise_diff, tri_index
 from gaussian_processes_tpu_torch.models.gaussian import GaussianKernel
 from gaussian_processes_tpu_torch.models.periodic import PeriodicKernel
+from gaussian_processes_tpu_torch.models.matern import Matern32Kernel, Matern52Kernel
+from gaussian_processes_tpu_torch.models.rq import RationalQuadraticKernel
+from gaussian_processes_tpu_torch.models.composite import ProductKernel, SumKernel
 from gaussian_processes_tpu_torch.models.ard import ARDGaussianKernel
 from gaussian_processes_tpu_torch.models.gp import (
     GPPosterior,
@@ -30,6 +33,11 @@ __all__ = [
     "tri_index",
     "GaussianKernel",
     "PeriodicKernel",
+    "Matern32Kernel",
+    "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "SumKernel",
+    "ProductKernel",
     "ARDGaussianKernel",
     "GPPosterior",
     "build_kxx",

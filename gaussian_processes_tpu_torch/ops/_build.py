@@ -45,13 +45,14 @@ launch_counts: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gp_pairwise_k": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # B1 and B4 take a tree's program (a host int array) after the family
+    "gp_pairwise_k": (_I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
     "gp_pairwise_deriv": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "gp_pairwise_k_chains": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gp_pairwise_k_chains": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     "gp_pairwise_jac_chains": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gp_chol_tile": (_I, _P, _P, _I, _I, _P),
     "gp_chol_tile_inv": (_I, _P, _P, _P, _I, _I, _P),
-    "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
     "gp_kernel_jacvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gp_pairwise_ard": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
     "gp_ard_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

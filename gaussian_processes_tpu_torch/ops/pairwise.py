@@ -1,19 +1,24 @@
 """Pairwise covariance, its derivatives, and matrix-free products: B1-B6.
 
-Counterpart of ``gaussian_processes_tpu/ops/pairwise.py`` (leaf SE and
-periodic kernels, and ARD-SE over (n, D) inputs).  Each public function is a
-wrapper: for tensors on the CPU it evaluates the plain PyTorch version beside
-it; for tensors on a CUDA card it launches the hand-written kernel of
-``csrc/pairwise.cu``, ``csrc/ard_pairwise.cu``, ``csrc/matvec.cuh`` or
+Counterpart of ``gaussian_processes_tpu/ops/pairwise.py`` (the leaf SE,
+periodic, Matérn 3/2 and 5/2 and RQ kernels, Sum/Product trees of them, and
+ARD-SE over (n, D) inputs).  Each public function is a wrapper: for
+tensors on the CPU it evaluates the plain PyTorch version beside it; for
+tensors on a CUDA card it launches the hand-written kernel of
+``csrc/pairwise.cuh``, ``csrc/ard_pairwise.cu``, ``csrc/matvec.cuh`` or
 ``csrc/ard_matvec.cuh``, or raises.
 
 * ``pairwise_matrix`` (B1) replaces ``_tile_body``: K[i, j] = k(x1_i - x2_j)
-  with an optional (s^2 + jitter) on the global diagonal, written once.
+  with an optional (s^2 + jitter) on the global diagonal, written once.  A
+  Sum/Product tree goes to the kernel as a postfix program
+  (``_tree_program``, the counterpart of ``tile_program``), at most
+  ``MAX_TREE_LEAVES`` leaves.
 * ``pairwise_jacobian`` (B2a) replaces ``_jac_tile_body``: (P, n, m).
 * ``pairwise_matrix_chains`` and ``pairwise_jacobian_chains`` are B1 and
   B2a over a (C, P) table of C chains' parameters, one launch each: the
   counterpart of the JAX package's ``vmap`` of those Pallas calls over the
-  samplers' chains.
+  samplers' chains.  A tree's Jacobian comes from its leaves' launches by
+  the matrix-level rule of ``models/composite.py``.
 * ``pairwise_hessian`` (B2b) replaces ``_hess_tile_body``: (P, P, n, m)
   filled symmetrically from the upper triangle, or one (n, m) plane when a
   ``pair`` is given, which evaluates that value's closed form alone
@@ -21,16 +26,17 @@ it; for tensors on a CUDA card it launches the hand-written kernel of
 * ``pairwise_matrix_ard`` (B6) replaces ``_ard_tile_body``: ARD-SE K with
   B4-ARD's arithmetic on coordinates scaled by ``ard_scale``
   (``pairwise_ard_prescaled_reference`` in plain PyTorch).
-* ``kernel_matvec_fused`` (B4, B4-ARD) replaces ``_matvec_tile_body`` and
-  ``_ard_matvec_tile_body``: (K(x, x) + (s^2 + jitter) I) V with K never
-  stored; the noise term is added outside the kernel.  B4-ARD
+* ``kernel_matvec_fused`` (B4 for leaves and trees, B4-ARD) replaces
+  ``_matvec_tile_body`` and ``_ard_matvec_tile_body``: (K(x, x) + (s^2 +
+  jitter) I) V with K never stored; the noise term is added outside the
+  kernel.  B4-ARD
   (``csrc/ard_matvec.cuh``) takes coordinates pre-scaled by
   ``ard_prescale``; ``ard_matvec_prescaled_reference`` is its arithmetic in
   plain PyTorch.
-* ``kernel_jacvec_fused`` (B5) replaces ``_jacvec_tile_body``: the (P, n, r)
-  stack of dK/dtheta_p U with dK/dtheta never stored.  B4 and B5 fold every
-  constant out of the element; ``matvec_folded_reference`` and
-  ``jacvec_folded_reference`` are that arithmetic in plain PyTorch.
+* ``kernel_jacvec_fused`` (B5, leaves only) replaces ``_jacvec_tile_body``:
+  the (P, n, r) stack of dK/dtheta_p U with dK/dtheta never stored.  B4 and
+  B5 fold every constant out of the element; ``matvec_folded_reference``
+  and ``jacvec_folded_reference`` are that arithmetic in plain PyTorch.
 
 B1, B2 and B6 are bound by the HBM write of their output (n * m elements per
 plane), B4 and B5 by the arithmetic of about n^2 closed-form evaluations;
@@ -41,6 +47,10 @@ B5 (``*_fused_reference``, the oracles and the CPU path) form strips of K
 hyperparameters stay on the device as a small tensor the kernel reads
 through a pointer.  The kernels carry no autograd rule yet: a CUDA wrapper
 raises if an input requires grad.
+
+Launch counters: each wrapper counts under its kernel's name for SE and
+periodic, and under the name and the family (``pairwise_k_matern52``,
+``kernel_matvec_tree``, ...) for the families and trees ported after them.
 """
 
 from __future__ import annotations
@@ -89,6 +99,96 @@ def _family(kernel) -> int:
     return fam
 
 
+# -- Sum/Product trees: the counterpart of tile_program / _fn_from_structure --
+
+#: the most leaves a tree may have on the card (gp::kMaxTreeLeaves)
+MAX_TREE_LEAVES = 8
+_TREE = 5  # gp::kTree
+_SUM, _PROD = -1, -2  # gp::kTreeSum, gp::kTreeProd
+#: the launch counters' suffix of each family (SE and periodic count under
+#: the kernel's bare name)
+_COUNTER_SUFFIX = {0: "", 1: "", 2: "_matern32", 3: "_matern52", 4: "_rq", _TREE: "_tree"}
+
+
+def is_tree(kernel) -> bool:
+    """True for a Sum/Product kernel (``models/composite.py``)."""
+    from gaussian_processes_tpu_torch.models.composite import _CompositeKernel
+
+    return isinstance(kernel, _CompositeKernel)
+
+
+def _tree_structure(kernel):
+    """The tree's static structure: ("sum" | "prod", left, right) or
+    ("leaf", class); TypeError for a leaf without a closed form (as the JAX
+    package's ``_tile_structure`` raises for an ARD leaf)."""
+    from gaussian_processes_tpu_torch.models.composite import ProductKernel, SumKernel
+
+    if isinstance(kernel, SumKernel):
+        return ("sum", _tree_structure(kernel.k1), _tree_structure(kernel.k2))
+    if isinstance(kernel, ProductKernel):
+        return ("prod", _tree_structure(kernel.k1), _tree_structure(kernel.k2))
+    if _has_closed_form(kernel):
+        return ("leaf", type(kernel))
+    raise TypeError(
+        f"{type(kernel).__name__} has no CUDA closed form (a tree's leaves need a "
+        "static k_fn over 1-D differences); ARD kernels use pairwise_matrix_ard")
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_program(struct):
+    """The postfix program of a tree structure in the kernels' host encoding
+    (csrc/closed_forms.cuh, ``parse_tree``): {n_nodes, op_0, offset_0, ...},
+    a leaf's op its family and offset its first parameter (k1's before
+    k2's), a sum or product's op -1 or -2.  Cached per structure, as the
+    JAX package caches the composed function, so the array outlives every
+    launch that points at it."""
+    nodes = []
+
+    def walk(node, offset):
+        if node[0] == "leaf":
+            nodes.append((node[1].cuda_family, offset))
+            return offset + len(node[1].param_names)
+        offset = walk(node[2], walk(node[1], offset))
+        nodes.append((_SUM if node[0] == "sum" else _PROD, 0))
+        return offset
+
+    walk(struct, 0)
+    leaves = (len(nodes) + 1) // 2
+    if leaves > MAX_TREE_LEAVES:
+        raise ValueError(f"a tree of {leaves} leaves; the CUDA kernels take at most "
+                         f"{MAX_TREE_LEAVES}")
+    code = [len(nodes)] + [v for node in nodes for v in node]
+    return (ctypes.c_int * len(code))(*code)
+
+
+def _launch_family(kernel):
+    """(family, program address or None, launch-counter suffix) of a leaf or
+    a tree for the CUDA entry points."""
+    if is_tree(kernel):
+        return _TREE, ctypes.addressof(_tree_program(_tree_structure(kernel))), "_tree"
+    fam = _family(kernel)
+    return fam, None, _COUNTER_SUFFIX[fam]
+
+
+def _leaf_class(kernel):
+    """The class whose static jac_fn / hess_fn B2 evaluates; TypeError for a
+    tree, whose derivatives are built at matrix level from its children
+    (``models/composite.py``), as in the JAX package."""
+    if is_tree(kernel):
+        raise TypeError(f"{type(kernel).__name__}: a Sum/Product tree has no pairwise "
+                        "derivative form; use its jacobian / hessian / hessian_pair")
+    return type(kernel)
+
+
+def _k_fn(kernel):
+    """The elementwise k of a leaf (its class's static k_fn) or a tree (the
+    composite's instance k_fn); a tree's leaves are checked first."""
+    if is_tree(kernel):
+        _tree_structure(kernel)
+        return kernel.k_fn
+    return type(kernel).k_fn
+
+
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise on anything the CUDA kernels do not take."""
     dev = tensors[0].device
@@ -116,13 +216,14 @@ def _launch_k(kernel, x1, x2, params, with_diag: bool) -> torch.Tensor:
     out = torch.empty((n, m), dtype=x1.dtype, device=x1.device)
     if n == 0 or m == 0:
         return out
+    family, tree, suffix = _launch_family(kernel)
     status = _build.entry("gp_pairwise_k", x1.dtype)(
         x1.device.index, x1.data_ptr(), x2.data_ptr(), params.data_ptr(),
-        out.data_ptr(), n, m, _family(kernel), int(with_diag),
+        out.data_ptr(), n, m, family, tree, int(with_diag),
         _build.stream_of(x1),
     )
     _build.check(status, "gp_pairwise_k")
-    _build.launch_counts["pairwise_k"] += 1
+    _build.launch_counts["pairwise_k" + suffix] += 1
     return out
 
 
@@ -139,13 +240,15 @@ def _launch_deriv(kernel, x1, x2, params, order: int, value: int, shape):
     out = torch.empty(shape, dtype=x1.dtype, device=x1.device)
     if n == 0 or m == 0:
         return out
+    family = _family(kernel)
     status = _build.entry("gp_pairwise_deriv", x1.dtype)(
         x1.device.index, x1.data_ptr(), x2.data_ptr(), params.data_ptr(),
-        out.data_ptr(), n, m, _family(kernel), order, value,
+        out.data_ptr(), n, m, family, order, value,
         _build.stream_of(x1),
     )
     _build.check(status, "gp_pairwise_deriv")
-    _build.launch_counts["pairwise_jac" if order == 1 else "pairwise_hess"] += 1
+    name = "pairwise_jac" if order == 1 else "pairwise_hess"
+    _build.launch_counts[name + _COUNTER_SUFFIX[family]] += 1
     return out
 
 
@@ -160,7 +263,8 @@ def _unsupported(x) -> RuntimeError:
 
 def pairwise_matrix(kernel, x1, x2, *, noise=None, jitter: float = 0.0) -> torch.Tensor:
     """K[i, j] = k(x1[i], x2[j]) (+ (noise^2 + jitter) on the diagonal when
-    a scalar noise is given).  The CUDA path is kernel B1."""
+    a scalar noise is given).  The CUDA path is kernel B1, for a
+    Sum/Product tree its tree body."""
     x1, x2 = _vectors(x1, x2)
     if x1.device.type == "cpu":
         return pairwise_matrix_reference(kernel, x1, x2, noise=noise, jitter=jitter)
@@ -177,7 +281,7 @@ def pairwise_matrix_reference(kernel, x1, x2, *, noise=None, jitter=0.0) -> torc
     """Plain PyTorch twin of ``pairwise_matrix`` (B1's oracle and CPU path)."""
     x1, x2 = _vectors(x1, x2)
     params = _params_like(kernel, x1)
-    K = type(kernel).k_fn(pairwise_diff(x1, x2), *params.unbind(0))
+    K = _k_fn(kernel)(pairwise_diff(x1, x2), *params.unbind(0))
     if noise is not None:
         K.diagonal().add_(_diag_term(noise, jitter, x1))
     return K
@@ -191,6 +295,7 @@ def pairwise_matrix_reference(kernel, x1, x2, *, noise=None, jitter=0.0) -> torc
 def pairwise_jacobian(kernel, x1, x2) -> torch.Tensor:
     """dK/dtheta, (P, n, m).  The CUDA path is kernel B2a."""
     x1, x2 = _vectors(x1, x2)
+    _leaf_class(kernel)
     if x1.device.type == "cpu":
         return pairwise_jacobian_reference(kernel, x1, x2)
     if x1.device.type != "cuda":
@@ -203,13 +308,14 @@ def pairwise_jacobian_reference(kernel, x1, x2) -> torch.Tensor:
     """Plain PyTorch twin of ``pairwise_jacobian``."""
     x1, x2 = _vectors(x1, x2)
     params = _params_like(kernel, x1)
-    return torch.stack(type(kernel).jac_fn(pairwise_diff(x1, x2), *params.unbind(0)))
+    return torch.stack(_leaf_class(kernel).jac_fn(pairwise_diff(x1, x2), *params.unbind(0)))
 
 
 def pairwise_hessian(kernel, x1, x2, *, pair=None) -> torch.Tensor:
     """d2K/dtheta2: (P, P, n, m), or the (n, m) plane ``pair=(p, q)``.
     The CUDA path is kernel B2b."""
     x1, x2 = _vectors(x1, x2)
+    _leaf_class(kernel)
     if x1.device.type == "cpu":
         return pairwise_hessian_reference(kernel, x1, x2, pair=pair)
     if x1.device.type != "cuda":
@@ -226,7 +332,7 @@ def pairwise_hessian_reference(kernel, x1, x2, *, pair=None) -> torch.Tensor:
     """Plain PyTorch twin of ``pairwise_hessian``."""
     x1, x2 = _vectors(x1, x2)
     params = _params_like(kernel, x1)
-    tri = type(kernel).hess_fn(pairwise_diff(x1, x2), *params.unbind(0))
+    tri = _leaf_class(kernel).hess_fn(pairwise_diff(x1, x2), *params.unbind(0))
     P = kernel.n_params
     if pair is not None:
         return tri[tri_index(pair[0], pair[1], P)]
@@ -288,12 +394,13 @@ def pairwise_matrix_chains(kernel_template, x, params, diag) -> torch.Tensor:
     out = torch.empty((C, n, n), dtype=x.dtype, device=x.device)
     if n == 0 or C == 0:
         return out
+    family, tree, suffix = _launch_family(kernel_template)
     status = _build.entry("gp_pairwise_k_chains", x.dtype)(
         x.device.index, x.data_ptr(), x.data_ptr(), table.data_ptr(), out.data_ptr(),
-        n, n, C, stride, _family(kernel_template), 1, _build.stream_of(x),
+        n, n, C, stride, family, tree, 1, _build.stream_of(x),
     )
     _build.check(status, "gp_pairwise_k_chains")
-    _build.launch_counts["pairwise_k_chains"] += 1
+    _build.launch_counts["pairwise_k_chains" + suffix] += 1
     return out
 
 
@@ -303,7 +410,7 @@ def pairwise_matrix_chains_reference(kernel_template, x, params, diag) -> torch.
     x, _ = _vectors(x, x)
     params = _chain_params(kernel_template, x, params)
     d = pairwise_diff(x, x)[None]
-    K = type(kernel_template).k_fn(d, *(p[:, None, None] for p in params.unbind(1)))
+    K = _k_fn(kernel_template)(d, *(p[:, None, None] for p in params.unbind(1)))
     K.diagonal(dim1=-2, dim2=-1).add_(torch.as_tensor(diag, dtype=x.dtype,
                                                       device=x.device)[:, None])
     return K
@@ -311,9 +418,12 @@ def pairwise_matrix_chains_reference(kernel_template, x, params, diag) -> torch.
 
 def pairwise_jacobian_chains(kernel_template, x, params) -> torch.Tensor:
     """dK_c/dtheta for every chain c: (C, P, n, n).  The CUDA path is kernel
-    B2a over the (C, P) table (rows may be a strided view), one launch."""
+    B2a over the (C, P) table (rows may be a strided view), one launch; for
+    a tree, ``tree_jacobian_chains`` over its leaves' launches."""
     x, _ = _vectors(x, x)
     params = _chain_params(kernel_template, x, params)
+    if is_tree(kernel_template):
+        return tree_jacobian_chains(kernel_template, x, params)
     if x.device.type == "cpu":
         return pairwise_jacobian_chains_reference(kernel_template, x, params)
     if x.device.type != "cuda":
@@ -324,19 +434,43 @@ def pairwise_jacobian_chains(kernel_template, x, params) -> torch.Tensor:
     out = torch.empty((C, P, n, n), dtype=x.dtype, device=x.device)
     if n == 0 or C == 0:
         return out
+    family = _family(kernel_template)
     status = _build.entry("gp_pairwise_jac_chains", x.dtype)(
         x.device.index, x.data_ptr(), x.data_ptr(), params.data_ptr(), out.data_ptr(),
-        n, n, C, params.stride(0), _family(kernel_template), _build.stream_of(x),
+        n, n, C, params.stride(0), family, _build.stream_of(x),
     )
     _build.check(status, "gp_pairwise_jac_chains")
-    _build.launch_counts["pairwise_jac_chains"] += 1
+    _build.launch_counts["pairwise_jac_chains" + _COUNTER_SUFFIX[family]] += 1
     return out
+
+
+def tree_jacobian_chains(kernel_template, x, params, *, reference: bool = False):
+    """(C, P, n, n) dK_c/dtheta of a Sum/Product tree for every chain, by
+    ``models/composite.py``'s matrix-level rule from the children over
+    their column slices of the table: [J1, J2] for a sum, [J1 K2, K1 J2] for
+    a product.  The children's K and dK/dtheta come from the chain wrappers
+    (B1 and B2a on a card), or from their plain versions with ``reference``."""
+    from gaussian_processes_tpu_torch.models.composite import SumKernel
+
+    k1, k2 = kernel_template.k1, kernel_template.k2
+    p1 = k1.n_params
+    t1, t2 = params[:, :p1], params[:, p1:]
+    jac = pairwise_jacobian_chains_reference if reference else pairwise_jacobian_chains
+    J1, J2 = jac(k1, x, t1), jac(k2, x, t2)
+    if isinstance(kernel_template, SumKernel):
+        return torch.cat([J1, J2], dim=1)
+    build = pairwise_matrix_chains_reference if reference else pairwise_matrix_chains
+    zero = params.new_zeros(params.shape[0])
+    K1, K2 = build(k1, x, t1, zero), build(k2, x, t2, zero)
+    return torch.cat([J1 * K2[:, None], K1[:, None] * J2], dim=1)
 
 
 def pairwise_jacobian_chains_reference(kernel_template, x, params) -> torch.Tensor:
     """Plain PyTorch twin of ``pairwise_jacobian_chains``."""
     x, _ = _vectors(x, x)
     params = _chain_params(kernel_template, x, params)
+    if is_tree(kernel_template):
+        return tree_jacobian_chains(kernel_template, x, params, reference=True)
     d = pairwise_diff(x, x)[None]
     return torch.stack(type(kernel_template).jac_fn(
         d, *(p[:, None, None] for p in params.unbind(1))), dim=1)
@@ -347,7 +481,8 @@ def hessian_plane_folded(kernel, x1, x2, pair) -> torch.Tensor:
     arithmetic (``HessValue`` in csrc/closed_forms.cuh): the factors that do
     not depend on the element folded into constants, then that value's
     closed form alone.  SE: E = exp(a d^2), a = -1 / (2 w^2); periodic:
-    u = d / 2p, s = sin u, E = exp(a s^2), a = -2 / w^2."""
+    u = d / 2p, s = sin u, E = exp(a s^2), a = -2 / w^2.  Matérn and RQ
+    evaluate ``hess_fn`` and keep that value (``HessFromFull``)."""
     x1, x2 = _vectors(x1, x2)
     P = kernel.n_params
     value = tri_index(pair[0], pair[1], P)
@@ -366,7 +501,7 @@ def hessian_plane_folded(kernel, x1, x2, pair) -> torch.Tensor:
         # (w, w): d^2 E (h^2 / w^6 d^2 - 3 h^2 / w^4)
         return (d2 * E) * ((h * h) * (iw2 * iw2 * iw2) * d2 + -3.0 * (h * h) * (iw2 * iw2))
     if fam != 1:
-        raise TypeError(f"no one-plane form for {type(kernel).__name__}")
+        return type(kernel).hess_fn(d, *params.unbind(0))[value]
     h, w, p = params.unbind(0)
     iw2, iw, ip = 1.0 / (w * w), 1.0 / w, 1.0 / p
     h2, ip2 = h * h, ip * ip
@@ -483,16 +618,29 @@ def _has_closed_form(kernel) -> bool:
     return isinstance(fam, int) and not isinstance(fam, bool)
 
 
+def _is_closed_form_tree(kernel) -> bool:
+    if not is_tree(kernel):
+        return False
+    try:
+        _tree_structure(kernel)
+    except TypeError:
+        return False
+    return True
+
+
 def supports_fused_matvec(kernel, x) -> bool:
-    """True when ``kernel_matvec_fused`` can run for this (kernel, x)."""
+    """True when ``kernel_matvec_fused`` can run for this (kernel, x): a
+    leaf with a closed form or a tree of them over 1-D x, ARD over (n, D)."""
     x = torch.as_tensor(x)
     if x.ndim == 2:
         return _is_ard(kernel)
-    return x.ndim == 1 and _has_closed_form(kernel)
+    return x.ndim == 1 and (_has_closed_form(kernel) or _is_closed_form_tree(kernel))
 
 
 def supports_fused_jacvec(kernel, x) -> bool:
-    """True when ``kernel_jacvec_fused`` can run for this (kernel, x)."""
+    """True when ``kernel_jacvec_fused`` can run for this (kernel, x): leaves
+    only, as the JAX package's gate (a tree's Jacobian is built at matrix
+    level from its children)."""
     return torch.as_tensor(x).ndim == 1 and _has_closed_form(kernel)
 
 
@@ -533,13 +681,14 @@ def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
     splits = _product_splits(n, r, x.device, vals)
     work = (torch.empty(splits * vals * n * r, dtype=x.dtype, device=x.device)
             if splits > 1 else None)
+    family, tree, suffix = _launch_family(kernel)
     status = _build.entry(name, x.dtype)(
         x.device.index, x.data_ptr(), v.data_ptr(), params.data_ptr(), out.data_ptr(),
-        None if work is None else work.data_ptr(), n, r, _family(kernel), splits,
-        _build.stream_of(x),
+        None if work is None else work.data_ptr(), n, r, family,
+        *(() if jac else (tree,)), splits, _build.stream_of(x),
     )
     _build.check(status, name)
-    _build.launch_counts["kernel_jacvec" if jac else "kernel_matvec"] += 1
+    _build.launch_counts[("kernel_jacvec" if jac else "kernel_matvec") + suffix] += 1
     return out
 
 
@@ -550,6 +699,10 @@ def _launch_product(kernel, x, v, jac: bool) -> torch.Tensor:
 # csrc/ard_matvec.cuh; B6: csrc/ard_pairwise.cu) once.
 _FOLD_C2 = {torch.float32: 0.5 * math.log2(math.e), torch.float64: 0.5}
 _ARD_SCALE = {dtype: math.sqrt(c2) for dtype, c2 in _FOLD_C2.items()}
+# L in e^(-u) = base^(-L u): log2(e) for float32's exp2, 1 for float64's exp
+# (the Matérn and RQ folds, fold_base in csrc/matvec.cuh)
+_FOLD_BASE = {torch.float32: math.log2(math.e), torch.float64: 1.0}
+_SQRT3, _SQRT5 = 1.7320508075688772, 2.23606797749979
 
 
 def folded_values(kernel, x1, x2, jac: bool = False):
@@ -559,25 +712,56 @@ def folded_values(kernel, x1, x2, jac: bool = False):
     scale[p] * planes[p]``.  SE: t = (x1_i - x2_j) s with s = c / w,
     E = exp2(-t^2) in float32, exp(-t^2) in float64; planes E (and E t^2).
     Periodic: g = sin((x1_i - x2_j) / 2p) 2 s; planes E (and E g^2,
-    E d sin u cos u).  The difference is taken first and then scaled:
-    pre-scaled coordinates lose float32 digits where |x| / w is large."""
+    E d sin u cos u).  Matérn: t = |x1_i - x2_j| s with s = c' L / w (c' =
+    sqrt(3), sqrt(5); L = log2(e) in float32, 1 in float64), E = exp2(-t)
+    or exp(-t), u = t / L; planes (1 + u) E or (1 + u (1 + u / 3)) E (and
+    u^2 E or u^2 (1 + u) E).  RQ: t = (x1_i - x2_j) s with s = 1 / (w
+    sqrt(2a)), B = 1 + t^2, B^-a = exp2(-a log2 B) or exp(-a ln B); planes
+    B^-a (and t^2 B^-a / B, B^-a (t^2 / B - ln B)).  A tree: the plain K,
+    scale 1.  The difference is taken first and then scaled: pre-scaled
+    coordinates lose float32 digits where |x| / w is large."""
     x1, x2 = _vectors(x1, x2)
+    if is_tree(kernel) and not jac:
+        one = torch.ones((), dtype=torch.float64, device=x1.device)
+        return [pairwise_matrix_reference(kernel, x1, x2)], [one]
     dtype = x1.dtype
     c2 = _FOLD_C2[dtype]
+    base = _FOLD_BASE[dtype]
     neg_exp = torch.exp2 if dtype == torch.float32 else torch.exp
     theta = kernel.params.to(device=x1.device, dtype=torch.float64)
     h, w = theta[0], theta[1]
-    s = (math.sqrt(c2) / w).to(dtype)
     d = pairwise_diff(x1, x2)
     fam = _family(kernel)
+    if fam in (2, 3):  # Matérn 3/2, 5/2
+        c = _SQRT3 if fam == 2 else _SQRT5
+        t = torch.abs(d) * (c * base / w).to(dtype)
+        u = t * (1.0 / base)
+        E = neg_exp(-t)
+        poly = (1.0 + u) if fam == 2 else (1.0 + u * (1.0 + u * (1.0 / 3.0)))
+        if not jac:
+            return [poly * E], [h * h]
+        if fam == 2:
+            return [poly * E, (u * u) * E], [2.0 * h, h * h / w]
+        return [poly * E, ((u * u) * (1.0 + u)) * E], [2.0 * h, h * h / (3.0 * w)]
+    if fam == 4:  # RQ
+        a = theta[2]
+        t = d * (1.0 / (w * torch.sqrt(2.0 * a))).to(dtype)
+        t2 = t * t
+        B = 1.0 + t2
+        lb = torch.log2(B) if dtype == torch.float32 else torch.log(B)
+        Ba = neg_exp(-(a.to(dtype) * lb))
+        if not jac:
+            return [Ba], [h * h]
+        q = t2 / B
+        return ([Ba, q * Ba, Ba * (q - lb * (1.0 / base))],
+                [2.0 * h, 2.0 * h * h * a / w, h * h])
+    s = (math.sqrt(c2) / w).to(dtype)
     if fam == 0:
         t2 = torch.square(d * s)
         E = neg_exp(-t2)
         if not jac:
             return [E], [h * h]
         return [E, E * t2], [2.0 * h, h * h / (c2 * w)]
-    if fam != 1:
-        raise TypeError(f"no folded form for {type(kernel).__name__}")
     p = theta[2]
     u = d * (0.5 / p).to(dtype)
     sn = torch.sin(u)
@@ -603,7 +787,7 @@ def _folded_product(kernel, x, v, jac: bool, block_size: int) -> torch.Tensor:
 
 def matvec_folded_reference(kernel, x, v, block_size=1024) -> torch.Tensor:
     """K(x, x) V with B4's arithmetic (``folded_values``), without the noise
-    term, for SE and periodic kernels over 1-D x."""
+    term, for leaf closed-form kernels and trees over 1-D x."""
     x = torch.as_tensor(x)
     v2, squeeze = _rhs(x, v)
     out = _folded_product(kernel, x, v2, False, block_size)[0]
@@ -703,9 +887,9 @@ def _launch_ard_product(kernel, x, v) -> torch.Tensor:
 
 def kernel_matvec_fused(kernel, x, v, noise, jitter: float = 0.0) -> torch.Tensor:
     """(K(x, x) + (noise^2 + jitter) I) @ v with K never stored; v is (n,) or
-    (n, r).  Leaf closed-form kernels over 1-D x and ``ARDGaussianKernel``
-    over (n, D) x.  The CUDA path is kernel B4 (B4-ARD); the noise term is
-    added outside it."""
+    (n, r).  Leaf closed-form kernels and Sum/Product trees of them over 1-D
+    x and ``ARDGaussianKernel`` over (n, D) x.  The CUDA path is kernel B4
+    (its tree body for a tree; B4-ARD); the noise term is added outside it."""
     x = torch.as_tensor(x)
     if not supports_fused_matvec(kernel, x):
         raise TypeError(f"no fused matvec for {type(kernel).__name__} over inputs "

@@ -156,16 +156,22 @@ CONFIGS = {
 
 def make_kernel(cfg: KernelConfig, *, dtype=None, device=None):
     from gaussian_processes_tpu_torch.models.gaussian import GaussianKernel
+    from gaussian_processes_tpu_torch.models.matern import Matern32Kernel, Matern52Kernel
     from gaussian_processes_tpu_torch.models.periodic import PeriodicKernel
+    from gaussian_processes_tpu_torch.models.rq import RationalQuadraticKernel
 
+    opts = dict(dtype=dtype, device=device)
     if cfg.family == "se":
-        return GaussianKernel(cfg.h, cfg.w, dtype=dtype, device=device)
+        return GaussianKernel(cfg.h, cfg.w, **opts)
     if cfg.family == "periodic":
-        return PeriodicKernel(cfg.h, cfg.w, cfg.p, dtype=dtype, device=device)
-    if cfg.family in ("matern32", "matern52", "rq"):
-        raise NotImplementedError(
-            f"kernel family {cfg.family!r} is not ported yet (ROADMAP A1)"
-        )
+        return PeriodicKernel(cfg.h, cfg.w, cfg.p, **opts)
+    if cfg.family == "matern32":
+        return Matern32Kernel(cfg.h, cfg.w, **opts)
+    if cfg.family == "matern52":
+        return Matern52Kernel(cfg.h, cfg.w, **opts)
+    if cfg.family == "rq":
+        # reuse the third slot (p) as the RQ mixture parameter
+        return RationalQuadraticKernel(cfg.h, cfg.w, cfg.p, **opts)
     raise ValueError(f"unknown kernel family: {cfg.family!r}")
 
 

@@ -16,10 +16,13 @@ one JSON line.  ``--profile DIR`` also writes a ``torch.profiler`` breakdown
 by kernel of one warm SE and one warm ARD ``fit_iterative`` at N=65536, of
 one SE value+grad there, of one exact fit at N=16384, of one gradient +
 chunked Hessian at N=4096, of 100 B1 and B6 launches at the pivot
-shapes and of one batched value+grad of 64 chains at N=500 to DIR/profile.json and prints its summary.  ``--ptxas SOURCE ...`` (file names under the
-package's csrc/, as matvec_f32.cu) compiles those sources with ``-Xptxas
--v`` and prints each kernel's registers, spills and stack, and does nothing
-else.  Needs a CUDA card (``--ptxas``: only nvcc); exits 1 without one.
+shapes, of one batched value+grad of 64 chains at N=500 and of one warm
+Matérn 5/2 and one quasi-periodic tree ``fit_iterative`` at N=65536 to
+DIR/profile.json and prints its summary.  ``--ptxas SOURCE ...`` (file
+names under the package's csrc/, as matvec_f32.cu) compiles those sources
+with ``-Xptxas -v`` and prints each kernel's registers, spills and stack,
+and each source's compile seconds, and does nothing else.  Needs a CUDA
+card (``--ptxas``: only nvcc); exits 1 without one.
 """
 
 from __future__ import annotations
@@ -50,7 +53,76 @@ def wall_s(fn) -> float:
 
 
 def measure(dev) -> dict:
-    return {**measure_exact_and_ard(dev), **measure_products(dev), **measure_chains(dev)}
+    return {**measure_exact_and_ard(dev), **measure_products(dev), **measure_chains(dev),
+            **measure_new_families(dev)}
+
+
+def measure_new_families(dev) -> dict:
+    """The cases of Matérn 3/2, Matérn 5/2, RQ and the quasi-periodic tree at
+    chip_smoke.py's path shapes: B1 at K_N^2 with the diagonal, B2a and one
+    B2b plane at GRAD_N^2, B1's pivot row and B4 / B5 at ITER_N (Matérn 5/2
+    at r = 1, 8, 9, the others at r = 9, the tree at r = 1, 8), B1 and B2a
+    over the chain table, and the Matérn 5/2 and tree ``fit_iterative``
+    walls.  Empty for a tree without these families."""
+    import dataclasses
+
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    if not hasattr(gpx, "Matern52Kernel"):
+        return {}
+    out = {}
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(2)
+    cfg1 = CONFIGS["config1_fit_se500"]
+    x16 = torch.as_tensor(make_data(dataclasses.replace(cfg1.data, n=cs.K_N), "float32")[0],
+                          device=dev)
+    x4 = torch.as_tensor(make_data(dataclasses.replace(cfg1.data, n=cs.GRAD_N), "float32")[0],
+                         device=dev)
+    noise = torch.tensor(cs.ITER_NOISE, dtype=f32, device=dev)
+    xs, ys, ks = cs.sine_problem(cs.ITER_N, dev)
+    piv = xs[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
+    u = torch.randn(cs.ITER_N, 9, generator=gen).to(dev)
+    for fam, (_, _, pair, _, _, _) in cs.NEW_FAMILY_OPS.items():
+        k = cs.new_kernel(fam, cs.NEW_FAMILY_PARAMS[fam], f32, dev)
+        out[f"B1_{fam}_{cs.K_N}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_matrix(k, x16, x16, noise=noise, jitter=1e-6), 10)
+        out[f"B2a_{fam}_{cs.GRAD_N}_ms"] = cs.time_ms(lambda: pw.pairwise_jacobian(k, x4, x4), 10)
+        out[f"B2b_{fam}_{cs.GRAD_N}_pair_ms"] = cs.time_ms(
+            lambda: pw.pairwise_hessian(k, x4, x4, pair=pair), 10)
+        ki = cs.new_kernel(fam, (1.0, float(ks.w), *cs.NEW_FAMILY_PARAMS[fam][2:]), f32, dev)
+        out[f"B1_{fam}_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_matrix(ki, piv, xs), 200)
+        for r in ((1, 8, 9) if fam == "matern52" else (9,)):
+            v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
+            out[f"B4_{fam}_r{r}_ms"] = cs.time_ms(
+                lambda: pw.kernel_matvec_fused(ki, xs, v, noise, cs.ITER_JITTER), 5)
+        out[f"B5_{fam}_r9_ms"] = cs.time_ms(lambda: pw.kernel_jacvec_fused(ki, xs, u), 5)
+    kt = cs.tree_kernel("qp", f32, dev, se=(1.0, float(ks.w)))
+    out[f"B1_tree_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(lambda: pw.pairwise_matrix(kt, piv, xs),
+                                                           200)
+    for r in (1, 8):
+        v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
+        out[f"B4_tree_r{r}_ms"] = cs.time_ms(
+            lambda: pw.kernel_matvec_fused(kt, xs, v, noise, cs.ITER_JITTER), 3)
+    for fam in ("matern52", "rq", "tree"):
+        x, template, theta = cs.chain_problem(dev, f32, fam)
+        P = template.n_params
+        params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
+        out[f"B1_chains_{fam}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_matrix_chains(template, x, params, diag), 50)
+        out[f"B2a_chains_{fam}_ms"] = cs.time_ms(
+            lambda: pw.pairwise_jacobian_chains(template, x, params), 50)
+    k52 = cs.new_kernel("matern52", (1.0, float(ks.w)), f32, dev)
+    for key in ("matern52_fit_iterative_wall_s", "matern52_fit_iterative_warm_wall_s"):
+        out[key] = wall_s(lambda: gpx.fit_iterative(k52, xs, ys, cs.ITER_NOISE, cs.seed(30),
+                                                    **cs.ITER_OPTS))
+    for key in ("tree_fit_iterative_wall_s", "tree_fit_iterative_warm_wall_s"):
+        out[key] = wall_s(lambda: gpx.fit_iterative(kt, xs, ys, cs.ITER_NOISE, cs.seed(33),
+                                                    **cs.ITER_OPTS))
+    return out
 
 
 def measure_chains(dev) -> dict:
@@ -247,6 +319,13 @@ def profile(dev, out_dir: str) -> dict:
         "B1_pivot_column_x100": times100(lambda: pw.pairwise_matrix(ks, xs, ps)),
         "B1_pivot_row_x100": times100(lambda: pw.pairwise_matrix(ks, ps, xs)),
     }
+    if hasattr(gpx, "Matern52Kernel"):
+        k52 = cs.new_kernel("matern52", (1.0, float(ks.w)), torch.float32, dev)
+        kt = cs.tree_kernel("qp", torch.float32, dev, se=(1.0, float(ks.w)))
+        runs[f"matern52_fit_iterative_{cs.ITER_N}"] = lambda: gpx.fit_iterative(
+            k52, xs, ys, cs.ITER_NOISE, cs.seed(30), **cs.ITER_OPTS)
+        runs[f"tree_fit_iterative_{cs.ITER_N}"] = lambda: gpx.fit_iterative(
+            kt, xs, ys, cs.ITER_NOISE, cs.seed(33), **cs.ITER_OPTS)
     if hasattr(gpx.models.gp, "log_marginal_value_and_grad_chains"):
         xc, kc, theta = cs.chain_problem(dev, torch.float32, "se")
         yc = torch.sin(2 * xc)

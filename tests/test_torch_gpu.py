@@ -1,4 +1,6 @@
-"""Kernels B1-B6 on the card against their plain PyTorch versions.
+"""Kernels B1-B6 on the card against their plain PyTorch versions: every
+leaf family (SE, periodic, Matérn 3/2 and 5/2, RQ) and, for B1 and B4,
+Sum/Product trees.
 
 Marked ``gpu``: each test skips without a CUDA device.  This file imports no
 JAX, so it also runs where JAX is absent:
@@ -29,6 +31,32 @@ KERNELS = {
     "se": lambda dt, dev: gpx.GaussianKernel(1.3, 0.7, dtype=dt, device=dev),
     "periodic": lambda dt, dev: gpx.PeriodicKernel(0.9, 1.1, 2.0, dtype=dt, device=dev),
 }
+# the families ported after SE and periodic, and their launch counters' suffix
+NEW_KERNELS = {
+    "matern32": lambda dt, dev: gpx.Matern32Kernel(1.3, 0.7, dtype=dt, device=dev),
+    "matern52": lambda dt, dev: gpx.Matern52Kernel(1.1, 0.9, dtype=dt, device=dev),
+    "rq": lambda dt, dev: gpx.RationalQuadraticKernel(0.9, 1.1, 1.5, dtype=dt, device=dev),
+}
+ALL_KERNELS = {**KERNELS, **NEW_KERNELS}
+
+
+def _tree(name, dt, dev):
+    """The quasi-periodic product (depth 1), a sum of products over four
+    families (depth 2) and a nested product of a sum."""
+    se = gpx.GaussianKernel(1.2, 0.8, dtype=dt, device=dev)
+    per = gpx.PeriodicKernel(0.9, 1.1, 1.7, dtype=dt, device=dev)
+    if name == "product":
+        return gpx.ProductKernel(se, per)
+    if name == "sum_of_products":
+        return gpx.SumKernel(
+            gpx.ProductKernel(gpx.Matern52Kernel(1.0, 0.7, dtype=dt, device=dev),
+                              gpx.RationalQuadraticKernel(1.0, 1.3, 0.7, dtype=dt, device=dev)),
+            gpx.ProductKernel(per, gpx.Matern32Kernel(0.8, 2.0, dtype=dt, device=dev)))
+    return gpx.ProductKernel(gpx.SumKernel(se, per), gpx.GaussianKernel(0.5, 2.0, dtype=dt,
+                                                                        device=dev))
+
+
+TREES = ["product", "sum_of_products", "product_of_sum"]
 TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 1e-13)}
 
 
@@ -393,6 +421,173 @@ def test_batched_blocked_factor_and_value_and_grad_on_card(cuda, dtype):
     cpu = gp.log_marginal_value_and_grad_chains(gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64),
                                                 x.cpu().double(),
                                                 y.cpu().double(), theta.cpu().double(), 1e-6)
+    rel = 1e-3 if dtype == torch.float32 else 1e-9
+    torch.testing.assert_close(lml.cpu().double(), cpu[0], rtol=rel, atol=0)
+    torch.testing.assert_close(grad.cpu().double(), cpu[1], rtol=0,
+                               atol=(2e-2 if dtype == torch.float32 else 1e-8) * cpu[1].abs().max())
+
+
+# -- the families and trees ported after SE and periodic -----------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", list(NEW_KERNELS))
+@pytest.mark.parametrize("n,m", [(300, 300), (129, 257), (1, 1000)])
+def test_new_family_pairwise_kernels_match_plain(cuda, family, dtype, n, m):
+    """B1 (with and without the diagonal), B2a, B2b's planes and each
+    one-plane instantiation, the pair in both orders, and the folded plane."""
+    k = NEW_KERNELS[family](dtype, cuda)
+    x1, x2 = _x(n, 60, dtype, cuda), _x(m, 61, dtype, cuda)
+    before = dict(_build.launch_counts)
+    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_reference(k, x1, x2), dtype)
+    _close(tpw.pairwise_matrix(k, x2, x2, noise=0.1, jitter=1e-6),
+           tpw.pairwise_matrix_reference(k, x2, x2, noise=0.1, jitter=1e-6), dtype)
+    _close(tpw.pairwise_jacobian(k, x1, x2), tpw.pairwise_jacobian_reference(k, x1, x2), dtype)
+    _close(tpw.pairwise_hessian(k, x1, x2), tpw.pairwise_hessian_reference(k, x1, x2), dtype)
+    P = k.n_params
+    for p in range(P):
+        for q in range(P):
+            got = tpw.pairwise_hessian(k, x1, x2, pair=(p, q))
+            _close(got, tpw.pairwise_hessian_reference(k, x1, x2, pair=(p, q)), dtype)
+            _close(got, tpw.hessian_plane_folded(k, x1, x2, (p, q)), dtype)
+    torch.cuda.synchronize()
+    after = _build.launch_counts
+    for key, count in (("pairwise_k", 2), ("pairwise_jac", 1), ("pairwise_hess", 1 + P * P)):
+        key += "_" + family
+        assert after[key] - before.get(key, 0) == count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", list(NEW_KERNELS))
+def test_new_family_exact_diagonal(cuda, family, dtype):
+    """k(0) = h^2 on the diagonal of K(x, x), and a Matérn dK/dw is 0 there."""
+    k = NEW_KERNELS[family](dtype, cuda)
+    x = _x(200, 62, dtype, cuda)
+    h2 = k.h.to(dtype) * k.h.to(dtype)
+    assert torch.equal(tpw.pairwise_matrix(k, x, x).diagonal(), h2.expand(200))
+    if family != "rq":
+        assert torch.equal(tpw.pairwise_jacobian(k, x, x)[1].diagonal(),
+                           torch.zeros(200, dtype=dtype, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", [1, 4, 8, 9, 16, 300])
+@pytest.mark.parametrize("n", [129, 777])
+@pytest.mark.parametrize("family", list(NEW_KERNELS))
+def test_new_family_products_match_plain(cuda, family, n, r, dtype):
+    """B4 and B5 against the plain products and the plain versions of their
+    folded arithmetic, with a repeat that must be bit-identical."""
+    k, x = NEW_KERNELS[family](dtype, cuda), _x(n, 63, dtype, cuda)
+    g = torch.Generator().manual_seed(64 + n + r)
+    v = torch.randn(n, r, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+    before = dict(_build.launch_counts)
+    got = tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6)
+    gotj = tpw.kernel_jacvec_fused(k, x, v)
+    torch.cuda.synchronize()
+    for key in ("kernel_matvec_" + family, "kernel_jacvec_" + family):
+        assert _build.launch_counts[key] == before.get(key, 0) + 1
+    bound = tpw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
+    _within_row_sums(got, tpw.kernel_matvec_fused_reference(k, x, v, 0.1, 1e-6), bound, dtype)
+    _within_row_sums(got, tpw.matvec_folded_reference(k, x, v)
+                     + tpw._diag_term(0.1, 1e-6, x) * v, bound, dtype)
+    J_abs = tpw.pairwise_jacobian_reference(k, x, x).abs() @ v.abs()
+    _within_row_sums(gotj, tpw.kernel_jacvec_fused_reference(k, x, v), J_abs, dtype)
+    _within_row_sums(gotj, tpw.jacvec_folded_reference(k, x, v), J_abs, dtype)
+    assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
+    assert torch.equal(gotj, tpw.kernel_jacvec_fused(k, x, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tree", TREES)
+def test_tree_bodies_match_plain(cuda, tree, dtype):
+    """B1's tree body (ragged, with the diagonal, a pivot row) and B4's at
+    r = 1, 9, 300, with bit-identical repeats."""
+    k = _tree(tree, dtype, cuda)
+    x1, x2 = _x(129, 65, dtype, cuda), _x(257, 66, dtype, cuda)
+    before = dict(_build.launch_counts)
+    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_reference(k, x1, x2), dtype)
+    _close(tpw.pairwise_matrix(k, x1, x1, noise=0.1, jitter=1e-6),
+           tpw.pairwise_matrix_reference(k, x1, x1, noise=0.1, jitter=1e-6), dtype)
+    _close(tpw.pairwise_matrix(k, x1[:1], x2), tpw.pairwise_matrix_reference(k, x1[:1], x2),
+           dtype)
+    for n, r in ((777, 1), (777, 9), (300, 300)):
+        x = _x(n, 67, dtype, cuda)
+        g = torch.Generator().manual_seed(r)
+        v = torch.randn(n, r, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+        got = tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6)
+        bound = tpw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
+        _within_row_sums(got, tpw.kernel_matvec_fused_reference(k, x, v, 0.1, 1e-6), bound,
+                         dtype)
+        assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
+    torch.cuda.synchronize()
+    after = _build.launch_counts
+    assert after["pairwise_k_tree"] - before.get("pairwise_k_tree", 0) == 3
+    assert after["kernel_matvec_tree"] - before.get("kernel_matvec_tree", 0) == 6
+
+
+def test_tree_limits_raise_on_the_card(cuda):
+    """A tree past the leaf limit and a tree with an ARD leaf raise, and a
+    tree never reaches B5 or B2: nothing falls back to the plain version."""
+    leaf = gpx.Matern52Kernel(1.0, 1.0, device=cuda)
+    big = leaf
+    for _ in range(tpw.MAX_TREE_LEAVES):
+        big = gpx.ProductKernel(big, leaf)
+    x = _x(64, 68, torch.float32, cuda)
+    with pytest.raises(ValueError, match="at most"):
+        tpw.pairwise_matrix(big, x, x)
+    with pytest.raises(ValueError, match="at most"):
+        tpw.kernel_matvec_fused(big, x, torch.ones(64, 1, device=cuda), 0.1)
+    ard = gpx.ProductKernel(leaf, gpx.ARDGaussianKernel(1.0, torch.ones(2), device=cuda))
+    with pytest.raises(TypeError):
+        tpw.pairwise_matrix(ard, x, x)
+    tree = _tree("product", torch.float32, cuda)
+    with pytest.raises(TypeError):
+        tpw.kernel_jacvec_fused(tree, x, torch.ones(64, 1, device=cuda))
+    with pytest.raises(TypeError):
+        tpw.pairwise_jacobian(tree, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", [*NEW_KERNELS, *TREES])
+@pytest.mark.parametrize("chains,n", [(1, 300), (64, 500), (3, 129)])
+def test_new_chain_tables_match_plain(cuda, kind, dtype, chains, n):
+    """B1 and B2a over the chain table for the new families, and a tree's
+    (B1's tree body; dK/dtheta from its leaves' launches)."""
+    k = NEW_KERNELS[kind](dtype, cuda) if kind in NEW_KERNELS else _tree(kind, dtype, cuda)
+    P = k.n_params
+    x = _x(n, 69, dtype, cuda)
+    g = torch.Generator().manual_seed(chains + n)
+    theta = (0.5 + torch.rand(chains, P + 1, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
+    before = dict(_build.launch_counts)
+    _close(tpw.pairwise_matrix_chains(k, x, params, diag),
+           tpw.pairwise_matrix_chains_reference(k, x, params, diag), dtype)
+    _close(tpw.pairwise_jacobian_chains(k, x, params),
+           tpw.pairwise_jacobian_chains_reference(k, x, params), dtype)
+    torch.cuda.synchronize()
+    suffix = "_tree" if kind in TREES else "_" + kind
+    key = "pairwise_k_chains" + suffix
+    # a product's dK/dtheta takes its children's K: one more tree launch for
+    # the product of a sum
+    assert _build.launch_counts[key] == before.get(key, 0) + 1 + (kind == "product_of_sum")
+    if kind in NEW_KERNELS:
+        key = "pairwise_jac_chains" + suffix
+        assert _build.launch_counts[key] == before.get(key, 0) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tree_value_and_grad_chains_on_card(cuda, dtype):
+    from gaussian_processes_tpu_torch.models import gp
+
+    k = _tree("product", dtype, cuda)
+    x = _x(300, 70, dtype, cuda)
+    y = torch.sin(2 * x)
+    g = torch.Generator().manual_seed(71)
+    theta = (0.5 + torch.rand(6, 6, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    lml, grad = gp.log_marginal_value_and_grad_chains(k, x, y, theta, 1e-6)
+    k64 = _tree("product", torch.float64, "cpu")
+    cpu = gp.log_marginal_value_and_grad_chains(k64, x.cpu().double(), y.cpu().double(),
+                                                theta.cpu().double(), 1e-6)
     rel = 1e-3 if dtype == torch.float32 else 1e-9
     torch.testing.assert_close(lml.cpu().double(), cpu[0], rtol=rel, atol=0)
     torch.testing.assert_close(grad.cpu().double(), cpu[1], rtol=0,
