@@ -24,7 +24,12 @@
    of a stack of 64 matrices (B3 on (64, 128, 128) stacks) are held against
    their plain versions at the samplers' N = 500, every family and the
    quasi-periodic tree, float32 and float64, with a non-PD chain that must
-   be NaN alone.
+   be NaN alone.  B1 (every case) and B4's tree and RQ cases are held
+   against the plain versions of their folded element
+   (``pairwise_matrix_folded``, ``matvec_folded_reference``), B1 repeated
+   bit for bit, its pivot rows (``pivot_rows``) bit for bit its columns;
+   RQ's folded log at a = 0.7, 1.5 and 940, and at a = 940 against the
+   float64 plain K and K V.
 4. Drives the main paths, each with the launch counters reset just before
    it and read just after: the exact-GP path
    (the ``fit`` workload of BASELINE config #1 through the CLI at N=500 and
@@ -217,6 +222,10 @@ MATERN32_K_OPS, MATERN52_K_OPS, RQ_K_OPS = 6, 8, 8
 MATERN32_JAC_OPS, MATERN52_JAC_OPS, RQ_JAC_OPS = 7, 11, 14
 MATERN_HESS_PLANE_OPS, RQ_HESS_PLANE_OPS = 8, 16
 TREE_K_OPS = SE_K_OPS + PERIODIC_K_OPS + 1
+# special-function results per element of the folded element (B1, B4): one
+# ex2 per product (a tree of one product: 1), RQ's lg2 one more; the sine is
+# reduced by hand on the FMA pipe (sfu_floor_ms: this design's own count)
+TREE_SFU, PERIODIC_K_SFU = 1, 1
 # per family: K ops, Jacobian ops, the timed Hessian plane and its ops,
 # special-function results per element (K; Jacobian)
 NEW_FAMILY_OPS = {
@@ -422,6 +431,21 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def call_us(fn, iters: int = 1000) -> float:
+    """Host wall per call of ``fn()`` in microseconds, over ``iters`` calls
+    that end in a synchronize: what a loop of dependent calls (the pivoted
+    Cholesky's rows) pays for each, launches and Python together."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
 def plane_violation(got, want, dtype_name: str) -> tuple:
     """(max |got - want|, max ratio of the error to its allowance); the
     allowance is rtol |want| + afrac max|plane| over the last two axes."""
@@ -510,12 +534,14 @@ def check_kernels_small(check, dev):
                 x2 = x1 if n == m else (torch.rand(m, generator=gen, dtype=torch.float64) * 6 - 3).to(dev, dtype)
                 tag = f"{fam} {n}x{m} {dname}"
                 _, v = plane_violation(pw.pairwise_matrix(k, x1, x2),
-                                       pw.pairwise_matrix_reference(k, x1, x2), dname)
+                                       pw.pairwise_matrix_folded(k, x1, x2), dname)
                 check(f"B1 {tag}", v, 1.0)
-                _, v = plane_violation(pw.pairwise_matrix(k, x1, x2, noise=0.1, jitter=1e-6),
-                                       pw.pairwise_matrix_reference(k, x1, x2, noise=0.1, jitter=1e-6),
+                got = pw.pairwise_matrix(k, x1, x2, noise=0.1, jitter=1e-6)
+                _, v = plane_violation(got, pw.pairwise_matrix_folded(k, x1, x2, noise=0.1, jitter=1e-6),
                                        dname)
                 check(f"B1+diag {tag}", v, 1.0)
+                same = torch.equal(got, pw.pairwise_matrix(k, x1, x2, noise=0.1, jitter=1e-6))
+                check(f"B1+diag {tag} repeat bit-identical (0 = yes)", 0.0 if same else 1.0, 0.0)
                 if pw.is_tree(k):  # a tree's derivatives are built from its leaves'
                     continue
                 _, v = plane_violation(pw.pairwise_jacobian(k, x1, x2),
@@ -626,7 +652,7 @@ def check_kernels_at_slice(check, dev) -> dict:
     # pageable host memory on every call, which waits for the card
     noise = torch.tensor(0.1, dtype=f32, device=dev)
     kern = lambda: pw.pairwise_matrix(k, x16, x16, noise=noise, jitter=1e-6)  # noqa: E731
-    plain = lambda: pw.pairwise_matrix_reference(k, x16, x16, noise=noise, jitter=1e-6)  # noqa: E731
+    plain = lambda: pw.pairwise_matrix_folded(k, x16, x16, noise=noise, jitter=1e-6)  # noqa: E731
     n2 = K_N * K_N
     check(f"B1 {K_N}x{K_N}+diag", record("pairwise_k", kern(), plain(), kern, plain, 10,
                                          (SE_K_OPS * n2 + K_N, 4 * (2 * K_N + n2))), 1.0)
@@ -911,6 +937,45 @@ def check_new_products_small(check, dev):
               0.0 if exact else 1.0, 0.0)
 
 
+RQ_A = (0.7, 1.5, 940.0)
+
+
+def check_rq_log(check, dev):
+    """RQ's folded log (the series below B = 17/16, lg2.approx above) at
+    a = 0.7, 1.5 and 940 (config #2's RQ run drives a to ~940): B1 and B4
+    against their folded plain versions in float32 and float64, over
+    [-3, 3] and over [-300, 300] (where B passes 17/16), and at a = 940
+    against the float64 plain K and K V."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("RQ's folded log vs plain, a = 0.7, 1.5, 940:", flush=True)
+    gen = torch.Generator().manual_seed(9)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for a in RQ_A:
+            k = new_kernel("rq", (0.9, 1.1, a), dtype, dev)
+            k64 = new_kernel("rq", (0.9, 1.1, a), torch.float64, dev)
+            worst, worst64 = 0.0, 0.0
+            for span in (3.0, 300.0):
+                x1 = ((torch.rand(777, generator=gen, dtype=torch.float64) * 2 - 1) * span).to(dev, dtype)
+                x2 = ((torch.rand(1234, generator=gen, dtype=torch.float64) * 2 - 1) * span).to(dev, dtype)
+                got = pw.pairwise_matrix(k, x1, x2)
+                worst = max(worst, plane_violation(got, pw.pairwise_matrix_folded(k, x1, x2), dname)[1])
+                want64 = pw.pairwise_matrix_reference(k64, x1.double(), x2.double())
+                worst64 = max(worst64, plane_violation(got.double(), want64, dname)[1])
+                v = torch.randn(777, 9, generator=gen, dtype=torch.float64).to(dev, dtype)
+                got = pw.kernel_matvec_fused(k, x1, v, 0.1, 1e-6)
+                bound_v = pw.kernel_matvec_fused_reference(k64, x1.double(), v.abs().double(), 0.1, 1e-6)
+                want = pw.matvec_folded_reference(k, x1, v) + pw._diag_term(0.1, 1e-6, x1) * v
+                worst = max(worst, product_violation(got.double(), want.double(), bound_v, dname)[1])
+                want64 = pw.kernel_matvec_fused_reference(k64, x1.double(), v.double(), 0.1, 1e-6)
+                worst64 = max(worst64, product_violation(got.double(), want64, bound_v, dname)[1])
+            check(f"RQ a={a} {dname}: B1 and B4 vs their folded plain versions", worst, 1.0)
+            if a == RQ_A[-1]:
+                check(f"RQ a={a} {dname}: B1 and B4 vs the float64 plain K and K V", worst64, 1.0)
+
+
 def check_new_kernels_at_slice(check, dev, rows):
     """The new families' and the trees' cases at their paths' shapes
     (float32), timed against their plain versions: B1 at 16384^2 with the
@@ -950,7 +1015,7 @@ def check_new_kernels_at_slice(check, dev, rows):
         P = k.n_params
         record(f"pairwise_k_{fam}", f"B1 {fam} {K_N}x{K_N}+diag",
                lambda: pw.pairwise_matrix(k, x16, x16, noise=noise, jitter=1e-6),
-               lambda: pw.pairwise_matrix_reference(k, x16, x16, noise=noise, jitter=1e-6), 10, 3,
+               lambda: pw.pairwise_matrix_folded(k, x16, x16, noise=noise, jitter=1e-6), 10, 3,
                (k_ops * n2 + K_N, 4 * (2 * K_N + n2)))
         record(f"pairwise_jac_{fam}", f"B2a {fam} {GRAD_N}x{GRAD_N}",
                lambda: pw.pairwise_jacobian(k, x4, x4),
@@ -963,7 +1028,7 @@ def check_new_kernels_at_slice(check, dev, rows):
     kt = tree_kernel("qp", f32, dev)
     record("pairwise_k_tree_16384", f"B1 tree qp {K_N}x{K_N}+diag",
            lambda: pw.pairwise_matrix(kt, x16, x16, noise=noise, jitter=1e-6),
-           lambda: pw.pairwise_matrix_reference(kt, x16, x16, noise=noise, jitter=1e-6), 10, 3,
+           lambda: pw.pairwise_matrix_folded(kt, x16, x16, noise=noise, jitter=1e-6), 10, 3,
            (TREE_K_OPS * n2 + K_N, 4 * (2 * K_N + n2)))
 
     gen = torch.Generator().manual_seed(8)
@@ -982,15 +1047,18 @@ def check_new_kernels_at_slice(check, dev, rows):
     for fam, (k_ops, j_ops, _, _, sfu_k, sfu_j) in NEW_FAMILY_OPS.items():
         k = kernels[fam]
         P = k.n_params
+        row = pw.pivot_rows(k, x)
         record(f"pairwise_k_{fam}_pivot_row", f"B1 {fam} pivot row 1x{ITER_N}",
-               lambda: pw.pairwise_matrix(k, piv, x), lambda: pw.pairwise_matrix_reference(k, piv, x),
+               lambda: row(piv)[None], lambda: pw.pairwise_matrix_folded(k, piv, x),
                200, 50, (k_ops * ITER_N, 4 * (1 + 2 * ITER_N)))
+        rows[f"pairwise_k_{fam}_pivot_row"]["call_us"] = call_us(lambda: row(piv))
         for r in ((1, 8, 9) if fam == "matern52" else (9,)):
             v = torch.randn(ITER_N, r, generator=gen).to(dev)
             key = f"kernel_matvec_{fam}" + ("" if r == (1 if fam == "matern52" else 9) else f"_r{r}")
             record(key, f"B4 {fam} N={ITER_N} r={r}",
                    lambda: pw.kernel_matvec_fused(k, x, v, noise, ITER_JITTER),
-                   lambda: pw.kernel_matvec_fused_reference(k, x, v, noise, ITER_JITTER), 5, 2,
+                   lambda: pw.matvec_folded_reference(k, x, v) + pw._diag_term(noise, ITER_JITTER, x) * v,
+                   5, 2,
                    ((k_ops + 2 * r) * N2, 4 * (ITER_N + 2 * ITER_N * r)), sfu_k * N2,
                    product_err(lambda: pw.kernel_matvec_fused_reference(k, x, v.abs(), noise,
                                                                         ITER_JITTER)))
@@ -1007,15 +1075,19 @@ def check_new_kernels_at_slice(check, dev, rows):
                5, 2, ((j_ops + 2 * P * 9) * N2, 4 * (ITER_N + 9 * ITER_N + P * 9 * ITER_N)),
                sfu_j * N2, product_err(lambda: jac_bound(u)))
     kt = tree_kernel("qp", f32, dev, se=(1.0, w_iter))
+    row = pw.pivot_rows(kt, x)
     record("pairwise_k_tree_pivot_row", f"B1 tree qp pivot row 1x{ITER_N}",
-           lambda: pw.pairwise_matrix(kt, piv, x), lambda: pw.pairwise_matrix_reference(kt, piv, x),
+           lambda: row(piv)[None], lambda: pw.pairwise_matrix_folded(kt, piv, x),
            200, 50, (TREE_K_OPS * ITER_N, 4 * (1 + 2 * ITER_N)))
+    rows["pairwise_k_tree_pivot_row"]["call_us"] = call_us(lambda: row(piv))
+    same = torch.equal(row(piv), pw.pairwise_matrix(kt, x, piv)[:, 0])
+    check("B1 tree pivot row bit-identical to the column (0 = yes)", 0.0 if same else 1.0, 0.0)
     for r in (1, 8):
         v = torch.randn(ITER_N, r, generator=gen).to(dev)
         record("kernel_matvec_tree" + ("" if r == 1 else f"_r{r}"), f"B4 tree qp N={ITER_N} r={r}",
                lambda: pw.kernel_matvec_fused(kt, x, v, noise, ITER_JITTER),
-               lambda: pw.kernel_matvec_fused_reference(kt, x, v, noise, ITER_JITTER), 3, 2,
-               ((TREE_K_OPS + 2 * r) * N2, 4 * (ITER_N + 2 * ITER_N * r)), 3 * N2,
+               lambda: pw.matvec_folded_reference(kt, x, v) + pw._diag_term(noise, ITER_JITTER, x) * v,
+               5, 2, ((TREE_K_OPS + 2 * r) * N2, 4 * (ITER_N + 2 * ITER_N * r)), TREE_SFU * N2,
                product_err(lambda: pw.kernel_matvec_fused_reference(kt, x, v.abs(), noise,
                                                                     ITER_JITTER)))
 
@@ -1091,19 +1163,25 @@ def check_products_at_slice(check, dev, rows):
         print(f"  kernel_matvec(impl='strip') N={ITER_N} r={r}: "
               f"{rows[f'strip_matvec_r{r}']['ms']:.4f} ms", flush=True)
     # B1 at the pivoted Cholesky's shapes: the column K(x, x[piv]) it built
-    # before, the row K(x[piv], x) it builds now
+    # before, the row K(x[piv], x) it builds now, through pivot_rows (the
+    # parameters read once), bit for bit the column
     piv_se = x[ITER_N // 3:ITER_N // 3 + 1].contiguous()
-    for key, a, b in (("pairwise_k_pivot_column", x, piv_se), ("pairwise_k_pivot_row", piv_se, x)):
-        pivot_row(key, f"B1 pivot {key.split('_')[-1]} {a.shape[0]}x{b.shape[0]}",
-                  lambda: pw.pairwise_matrix(k, a, b),
-                  lambda: pw.pairwise_matrix_reference(k, a, b),
-                  (SE_K_OPS * ITER_N, 4 * (1 + 2 * ITER_N)))
+    pivot_row("pairwise_k_pivot_column", f"B1 pivot column {ITER_N}x1",
+              lambda: pw.pairwise_matrix(k, x, piv_se),
+              lambda: pw.pairwise_matrix_folded(k, x, piv_se), (SE_K_OPS * ITER_N, 4 * (1 + 2 * ITER_N)))
+    row = pw.pivot_rows(k, x)
+    pivot_row("pairwise_k_pivot_row", f"B1 pivot row 1x{ITER_N} (pivot_rows)",
+              lambda: row(piv_se)[None], lambda: pw.pairwise_matrix_folded(k, piv_se, x),
+              (SE_K_OPS * ITER_N, 4 * (1 + 2 * ITER_N)))
+    rows["pairwise_k_pivot_row"]["call_us"] = call_us(lambda: row(piv_se))
+    same = torch.equal(row(piv_se), pw.pairwise_matrix(k, x, piv_se)[:, 0])
+    check("B1 pivot row bit-identical to the column (0 = yes)", 0.0 if same else 1.0, 0.0)
     # SE's dK/dh and dK/dw are >= 0, so the plain product with |U| is the bound
     jacvec_row(k, "kernel_jacvec", "B5 SE", SE_JAC_OPS, 1,
                lambda u: pw.kernel_jacvec_fused_reference(k, x, u.abs()))
     # periodic, two periods over the data: not on the fits' path, timed beside
     kp = PeriodicKernel(1.0, 1.0, 0.5, dtype=torch.float32, device=dev)
-    matvec_rows(kp, x, "B4 periodic", PERIODIC_K_OPS, 2,
+    matvec_rows(kp, x, "B4 periodic", PERIODIC_K_OPS, PERIODIC_K_SFU,
                 ((1, "kernel_matvec_periodic"), (8, "kernel_matvec_periodic_r8")))
 
     def periodic_jac_bound(u, block=2048):  # |dK/dp| needs the planes' absolute values
@@ -1194,7 +1272,7 @@ def check_chain_kernels(check, dev, rows):
             params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
             tag = f"{fam} {C}x{n}^2 {dname}"
             kern = lambda: pw.pairwise_matrix_chains(template, x, params, diag)  # noqa: E731
-            plain = lambda: pw.pairwise_matrix_chains_reference(template, x, params, diag)  # noqa: E731
+            plain = lambda: pw.pairwise_matrix_chains_folded(template, x, params, diag)  # noqa: E731
             K, Kr = kern(), plain()
             err, v = plane_violation(K, Kr, dname)
             check(f"B1 chain table {tag}", v, 1.0)
@@ -2005,6 +2083,7 @@ def main() -> int:
     check_ard_products_small(check, dev)
     check_jac_products_small(check, dev)
     check_new_products_small(check, dev)
+    check_rq_log(check, dev)
     check_ard_pairwise_small(check, dev)
     slice_rows = check_kernels_at_slice(check, dev)
     check_products_at_slice(check, dev, slice_rows)

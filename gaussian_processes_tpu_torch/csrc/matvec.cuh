@@ -24,8 +24,10 @@
 //   float64.  B5's two values are E and E t^2.  h^2 (B5: 2h and
 //   h^2 / (c^2 w), c^2 = s^2 w^2) multiplies the row's double sums once, at
 //   the store.  Periodic: g = sin((x_i - x_j) / 2p) a with a = 2 s,
-//   E = 2^(-g^2); B5's values are E, E g^2 and E d sin u cos u from one
-//   sincos.  The difference is taken first and then scaled: coordinates
+//   E = 2^(-g^2), the sine reduced by hand (gp::sin_reduced) in B4; B5's
+//   values are E, E g^2 and E d sin u cos u from one sincos.  B4's element
+//   is closed_forms.cuh's folded one (gp::LeafValue), the same as B1's.
+//   The difference is taken first and then scaled: coordinates
 //   pre-scaled by s, as B4-ARD takes them, reach +-278 at N = 65536 with
 //   100 points per lengthscale, where a float32 ulp of x s moves an entry
 //   of K by 1e-4 relative (tests/test_torch_se_products.py holds the form
@@ -44,17 +46,23 @@
 // B4's value is the polynomial in u times E, B5's (1 + u) E (5/2: (1 + u +
 // u^2 / 3) E) and u^2 E (5/2: u^2 (1 + u) E), at d = 0 exactly 1 and 0.  RQ:
 // t = (x_i - x_j) s with s = 1 / (w sqrt(2a)), B = 1 + t^2, B^(-a) =
-// base^(-a log_base B): two special-function results an element; B5's
-// values B^(-a), t^2 B^(-a) / B and B^(-a) (t^2 / B - ln B).  A tree
-// (TreeValue) evaluates the closed forms of closed_forms.cuh through
-// tree_k, scale 1: a sum of products has no factor common to the row.
+// base^(-a log_base B): two special-function results an element (B4 takes
+// log_base B as a series below B = 17/16 and as lg2.approx above,
+// gp::log1p_base; B5 the accurate log2f); B5's values B^(-a), t^2 B^(-a) /
+// B and B^(-a) (t^2 / B - ln B).  A tree (gp::TreeValue) is a sum of
+// products of the folded leaves, one exponential per product; its element
+// is long, so a thread evaluates its ROWS rows (at most 4) against
+// kTreeCols columns at once (16 elements per pass of the tree's rolled
+// loops) and the column loop stays rolled: unrolled 4 times the code
+// overflowed the instruction cache (B4 tree 111 ms at r = 1, against 6.6
+// ms rolled; NVIDIA H100 80GB HBM3, 700 W).
 //
 // On an H100 80GB HBM3 at 700 W, float32, N = 65536 (kernel_timing.py, one
 // thread per row and the unfolded forms before -> this design): SE B4
 // 2.83 -> 1.18 ms at r = 1 (87% of the special-function floor), 4.27 ->
 // 2.45 at r = 8, 6.92 -> 2.38 at r = 9; SE B5 27.4 -> 4.63 ms at r = 9;
-// periodic, where the accurate sinf sets the pace, B4 12.1 -> 5.22 ms at
-// r = 1 and B5 51.3 -> 11.7 at r = 9.  Blocks per SM, rows per thread,
+// periodic, where the accurate sinf then set the pace, B4 12.1 -> 5.22 ms
+// at r = 1 and B5 51.3 -> 11.7 at r = 9.  Blocks per SM, rows per thread,
 // the tile width and minimum-blocks launch bounds were swept on the card
 // and moved no time by more than 8%.
 //
@@ -71,9 +79,9 @@
 //
 // The product kernel's instantiations take a while to compile, so SE's and
 // periodic's (19 per element type) live in matvec_f32.cu and matvec_f64.cu
-// with the entry points, and Matern's, RQ's and the tree's (34 per type) in
-// matvec_ext_f32.cu and matvec_ext_f64.cu, four sources that the build
-// compiles in parallel.
+// with the entry points, Matern's and RQ's (29 per type) in matvec_ext_f32.cu
+// and matvec_ext_f64.cu, and the tree's (5 per type) in matvec_tree_f32.cu
+// and matvec_tree_f64.cu, six sources that the build compiles in parallel.
 
 #pragma once
 
@@ -99,6 +107,13 @@ int launch_matvec_ext(const float* x, const float* v, const float* params, float
 int launch_matvec_ext(const double* x, const double* v, const double* params, double* out,
                       double* work, int n, int r, int family, const TreeProgram& prog,
                       int splits, cudaStream_t stream);
+// B4 for a tree (matvec_tree_f32.cu, matvec_tree_f64.cu)
+int launch_matvec_tree(const float* x, const float* v, const float* params, float* out,
+                       float* work, int n, int r, const TreeProgram& prog, int splits,
+                       cudaStream_t stream);
+int launch_matvec_tree(const double* x, const double* v, const double* params, double* out,
+                       double* work, int n, int r, const TreeProgram& prog, int splits,
+                       cudaStream_t stream);
 int launch_jacvec_ext(const float* x, const float* u, const float* params, float* out,
                       float* work, int n, int r, int family, int splits, cudaStream_t stream);
 int launch_jacvec_ext(const double* x, const double* u, const double* params, double* out,
@@ -113,48 +128,23 @@ constexpr int kTile = 128;        // B4/B5: columns of K per shared-memory tile
 constexpr int kAccBudget = 36;    // B4/B5: accumulators (ROWS * P * RC) a thread holds
 constexpr int kMaxRows = 8;       // B4/B5: most rows a thread owns
 constexpr int kBlocksPerSm = 16;  // B4/B5: blocks per SM the column splits aim for
+constexpr int kTreeCols = 4;      // B4's tree: columns a thread evaluates at once
 constexpr int kMaxGrid = 65535;   // grid axes y and z
 
 // -- what one product evaluates per element (i, j) ---------------------------
 //
-// Each form gives kVals unscaled values per element and the constant that
-// multiplies each value's row sums.  fold_c2 is c^2 in exp(-q / 2) =
-// base^(-c^2 q): log2(e) / 2 for float32's ex2, 1 / 2 for float64's exp.
+// B4 evaluates the folded element of closed_forms.cuh (gp::LeafValue,
+// gp::TreeValue), W rows at a time; B5 the forms below, kVals unscaled values
+// per element, with the constant that multiplies each value's row sums.
 
-template <typename T>
-__host__ __device__ constexpr double fold_c2() {
-  return sizeof(T) == 4 ? 0.72134752044448170368 : 0.5;
-}
-
-// L, the factor that turns e^(-u) into base^(-L u) with neg_exp's base:
-// log2(e) for float32's ex2, 1 for float64's exp
-template <typename T>
-__host__ __device__ constexpr double fold_base() {
-  return sizeof(T) == 4 ? 1.4426950408889634 : 1.0;
-}
+using gp::fold_base;
+using gp::fold_c2;
 
 __device__ __forceinline__ void dsincos(float v, float* s, float* c) { sincosf(v, s, c); }
 __device__ __forceinline__ void dsincos(double v, double* s, double* c) { sincos(v, s, c); }
 // the logarithm in neg_exp's base: log2 in float32, ln in float64
 __device__ __forceinline__ float fold_log(float v) { return log2f(v); }
 __device__ __forceinline__ double fold_log(double v) { return log(v); }
-
-// B4, SE: h^2 exp(-d^2 / (2 w^2)) = h^2 base^(-t^2), t = d s
-template <typename T>
-struct SEValue {
-  static constexpr int kVals = 1;
-  T s;
-  double scale[kVals];
-  __device__ explicit SEValue(const T* th) {
-    const double h = th[0], w = th[1];
-    s = static_cast<T>(sqrt(fold_c2<T>()) / w);
-    scale[0] = h * h;
-  }
-  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
-    const T t = (xi - xj) * s;
-    val[0] = neg_exp(t * t);
-  }
-};
 
 // B5, SE: dK/dh = 2h E, dK/dw = h^2 E d^2 / w^3 = h^2 / (c^2 w) E t^2
 template <typename T>
@@ -174,25 +164,6 @@ struct SEJac {
     const T E = neg_exp(t2);
     val[0] = E;
     val[1] = E * t2;
-  }
-};
-
-// B4, periodic: h^2 exp(-2 sin^2(u) / w^2) = h^2 base^(-g^2), u = d / 2p,
-// g = sin(u) a, a = 2 c / w
-template <typename T>
-struct PeriodicValue {
-  static constexpr int kVals = 1;
-  T i2p, a;
-  double scale[kVals];
-  __device__ explicit PeriodicValue(const T* th) {
-    const double h = th[0], w = th[1], p = th[2];
-    i2p = static_cast<T>(0.5 / p);
-    a = static_cast<T>(2.0 * sqrt(fold_c2<T>()) / w);
-    scale[0] = h * h;
-  }
-  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
-    const T g = gp::dsin((xi - xj) * i2p) * a;
-    val[0] = neg_exp(g * g);
   }
 };
 
@@ -225,25 +196,6 @@ struct PeriodicJac {
   }
 };
 
-// B4, Matern 3/2: h^2 (1 + u) e^(-u) = h^2 (1 + t / L) base^(-t), t = |d| s,
-// s = sqrt(3) L / w
-template <typename T>
-struct Matern32Value {
-  static constexpr int kVals = 1;
-  T s, iL;
-  double scale[kVals];
-  __device__ explicit Matern32Value(const T* th) {
-    const double h = th[0], w = th[1];
-    s = static_cast<T>(gp::kSqrt3 * fold_base<T>() / w);
-    iL = static_cast<T>(1.0 / fold_base<T>());
-    scale[0] = h * h;
-  }
-  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
-    const T t = gp::dabs(xi - xj) * s;
-    val[0] = gp::dfma(t, iL, T(1)) * neg_exp(t);
-  }
-};
-
 // B5, Matern 3/2: dK/dh = 2h (1 + u) E, dK/dw = h^2 / w u^2 E
 template <typename T>
 struct Matern32Jac {
@@ -263,25 +215,6 @@ struct Matern32Jac {
     const T E = neg_exp(t);
     val[0] = (T(1) + u) * E;
     val[1] = (u * u) * E;
-  }
-};
-
-// B4, Matern 5/2: h^2 (1 + u + u^2 / 3) e^(-u), t and s as 3/2's with sqrt(5)
-template <typename T>
-struct Matern52Value {
-  static constexpr int kVals = 1;
-  T s, iL;
-  double scale[kVals];
-  __device__ explicit Matern52Value(const T* th) {
-    const double h = th[0], w = th[1];
-    s = static_cast<T>(gp::kSqrt5 * fold_base<T>() / w);
-    iL = static_cast<T>(1.0 / fold_base<T>());
-    scale[0] = h * h;
-  }
-  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
-    const T t = gp::dabs(xi - xj) * s;
-    const T u = t * iL;
-    val[0] = gp::dfma(u, gp::dfma(u, T(1) / T(3), T(1)), T(1)) * neg_exp(t);
   }
 };
 
@@ -305,25 +238,6 @@ struct Matern52Jac {
     const T E = neg_exp(t);
     val[0] = gp::dfma(u, gp::dfma(u, T(1) / T(3), T(1)), T(1)) * E;
     val[1] = ((u * u) * (T(1) + u)) * E;
-  }
-};
-
-// B4, RQ: h^2 (1 + d^2 / (2 a w^2))^(-a) = h^2 base^(-a log_base B),
-// B = 1 + t^2, t = d s, s = 1 / (w sqrt(2a))
-template <typename T>
-struct RQValue {
-  static constexpr int kVals = 1;
-  T s, a;
-  double scale[kVals];
-  __device__ explicit RQValue(const T* th) {
-    const double h = th[0], w = th[1], ad = th[2];
-    s = static_cast<T>(1.0 / (w * sqrt(2.0 * ad)));
-    a = th[2];
-    scale[0] = h * h;
-  }
-  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
-    const T t = (xi - xj) * s;
-    val[0] = neg_exp(a * fold_log(gp::dfma(t, t, T(1))));
   }
 };
 
@@ -357,32 +271,6 @@ struct RQJac {
   }
 };
 
-// B4, a Sum/Product tree: the whole k per element (closed_forms.cuh,
-// tree_k), its parameters read through the pointer
-template <typename T>
-struct TreeValue {
-  static constexpr int kVals = 1;
-  const T* th;
-  gp::TreeProgram prog;
-  double scale[kVals];
-  __device__ TreeValue(const T* params, const gp::TreeProgram& p) : th(params), prog(p) {
-    scale[0] = 1.0;
-  }
-  __device__ __forceinline__ void eval(T xi, T xj, T (&val)[kVals]) const {
-    val[0] = gp::tree_k(prog, xi - xj, th);
-  }
-};
-
-// an evaluator from the parameters, and the program where it takes one
-template <typename Eval, typename T>
-__device__ __forceinline__ Eval make_eval(const T* params, const gp::TreeProgram& prog) {
-  if constexpr (std::is_constructible_v<Eval, const T*, const gp::TreeProgram&>) {
-    return Eval(params, prog);
-  } else {
-    return Eval(params);
-  }
-}
-
 // -- the block shape ----------------------------------------------------------
 
 // RC, the right-hand sides a block holds: the smallest of 1, 4, 8, 9 that
@@ -400,6 +288,27 @@ constexpr int rows_for(int vals, int rc) {
   const int rows = kAccBudget / (vals * rc);
   const int most = kMaxRows / vals;
   return rows < 1 ? 1 : (rows > most ? most : rows);
+}
+
+// the rows a thread owns for an evaluator: B4's (one value) at most its
+// max_rows, a tree's fewer than a leaf's
+template <typename Eval, int RC>
+constexpr int eval_rows() {
+  if constexpr (Eval::kVals == 1) {
+    return rows_for(1, RC) < Eval::max_rows(RC) ? rows_for(1, RC) : Eval::max_rows(RC);
+  } else {
+    return rows_for(Eval::kVals, RC);
+  }
+}
+
+// B4's evaluators take the parameters and the program, B5's the parameters
+template <typename Eval, typename T>
+__device__ __forceinline__ Eval make_eval(const T* params, const gp::TreeProgram& prog) {
+  if constexpr (Eval::kVals == 1) {
+    return Eval(params, prog);
+  } else {
+    return Eval(params);
+  }
 }
 
 // the column splits of a launch: about kBlocksPerSm blocks per SM, with at
@@ -424,10 +333,10 @@ __host__ __device__ constexpr int padded_chunk() {
 // -- the product: out[z][p][i][c] = scale_p sum_{j in split z} val_p(i, j) V[j][c]
 
 template <typename T, typename Eval, int RC, int ROWS>
-__global__ void __launch_bounds__(kThreads)
-product_kernel(const T* __restrict__ x, const T* __restrict__ v,
-               const T* __restrict__ params, T* __restrict__ out, int n, int r,
-               int cols_per_split, gp::TreeProgram prog) {
+__device__ __forceinline__ void product_body(const T* __restrict__ x, const T* __restrict__ v,
+                                             const T* __restrict__ params, T* __restrict__ out,
+                                             int n, int r, int cols_per_split,
+                                             const gp::TreeProgram& prog) {
   constexpr int kV = Eval::kVals;
   constexpr int RCP = padded_chunk<T, RC>();
   __shared__ __align__(16) T xt[kTile];
@@ -472,28 +381,62 @@ product_kernel(const T* __restrict__ x, const T* __restrict__ v,
         for (int c = 0; c < RC; ++c) part[q][p][c] = T(0);
       }
     }
+    if constexpr (gp::kIsTree<Eval>) {
+      // a tree: kTreeCols columns' ROWS elements at once, the column loop
+      // rolled (the element is long: unrolled it overflowed the
+      // instruction cache), x_j and V read from shared memory by index
 #pragma unroll 1
-    for (int j4 = 0; j4 < cnt; j4 += 4) {
-      T xj[4];
-      T v4[4];
-      ldv<4>(xt + j4, xj);
-      if constexpr (RC == 1) ldv<4>(vt + j4, v4);
+      for (int j = 0; j < cnt; j += kTreeCols) {
+        T d[kTreeCols * ROWS], k[kTreeCols * ROWS];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        T vj[RCP];
-        if constexpr (RC == 1) {
-          vj[0] = v4[u];
-        } else {
-          ldv<RCP>(vt + (j4 + u) * RCP, vj);
+        for (int u = 0; u < kTreeCols; ++u) {
+          const T xj = xt[j + u];
+#pragma unroll
+          for (int q = 0; q < ROWS; ++q) d[u * ROWS + q] = xi[q] - xj;
         }
+        ev.eval(d, k);
 #pragma unroll
-        for (int q = 0; q < ROWS; ++q) {
-          T val[kV];
-          ev.eval(xi[q], xj[u], val);
+        for (int u = 0; u < kTreeCols; ++u) {
+          T vj[RCP];
+          ldv<RCP>(vt + (j + u) * RCP, vj);
 #pragma unroll
-          for (int p = 0; p < kV; ++p) {
+          for (int q = 0; q < ROWS; ++q) {
 #pragma unroll
-            for (int c = 0; c < RC; ++c) part[q][p][c] = gp::dfma(val[p], vj[c], part[q][p][c]);
+            for (int c = 0; c < RC; ++c) {
+              part[q][0][c] = gp::dfma(k[u * ROWS + q], vj[c], part[q][0][c]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int j4 = 0; j4 < cnt; j4 += 4) {
+        T xj[4];
+        T v4[4];
+        ldv<4>(xt + j4, xj);
+        if constexpr (RC == 1) ldv<4>(vt + j4, v4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          T vj[RCP];
+          if constexpr (RC == 1) {
+            vj[0] = v4[u];
+          } else {
+            ldv<RCP>(vt + (j4 + u) * RCP, vj);
+          }
+#pragma unroll
+          for (int q = 0; q < ROWS; ++q) {
+            T val[kV];
+            if constexpr (kV == 1) {  // B4: the folded element, one at a time
+              const T d[1] = {xi[q] - xj[u]};
+              ev.eval(d, val);
+            } else {
+              ev.eval(xi[q], xj[u], val);
+            }
+#pragma unroll
+            for (int p = 0; p < kV; ++p) {
+#pragma unroll
+              for (int c = 0; c < RC; ++c) part[q][p][c] = gp::dfma(val[p], vj[c], part[q][p][c]);
+            }
           }
         }
       }
@@ -525,11 +468,29 @@ product_kernel(const T* __restrict__ x, const T* __restrict__ v,
   }
 }
 
+template <typename T, typename Eval, int RC, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+product_kernel(const T* __restrict__ x, const T* __restrict__ v,
+               const T* __restrict__ params, T* __restrict__ out, int n, int r,
+               int cols_per_split, const __grid_constant__ gp::TreeProgram prog) {
+  product_body<T, Eval, RC, ROWS>(x, v, params, out, n, r, cols_per_split, prog);
+}
+
+// a tree's product: one block per SM as the launch bound's floor (without
+// it ptxas capped the r = 1 instantiation at 128 registers and spilled)
+template <typename T, typename Eval, int RC, int ROWS>
+__global__ void __launch_bounds__(kThreads, 1)
+tree_product_kernel(const T* __restrict__ x, const T* __restrict__ v,
+                    const T* __restrict__ params, T* __restrict__ out, int n, int r,
+                    int cols_per_split, const __grid_constant__ gp::TreeProgram prog) {
+  product_body<T, Eval, RC, ROWS>(x, v, params, out, n, r, cols_per_split, prog);
+}
+
 template <typename T, typename Eval, int RC>
 int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
                       int n, int r, const gp::TreeProgram& prog, int splits,
                       cudaStream_t stream) {
-  constexpr int ROWS = rows_for(Eval::kVals, RC);
+  constexpr int ROWS = eval_rows<Eval, RC>();
   const int tiles = (n + kTile - 1) / kTile;
   const int tiles_per_split = (tiles + splits - 1) / splits;
   const int used = (tiles + tiles_per_split - 1) / tiles_per_split;
@@ -537,8 +498,14 @@ int launch_product_rc(const T* x, const T* v, const T* params, T* out, T* work,
   if (grid.y > kMaxGrid || grid.z > kMaxGrid) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  product_kernel<T, Eval, RC, ROWS><<<grid, kThreads, 0, stream>>>(
-      x, v, params, used == 1 ? out : work, n, r, tiles_per_split * kTile, prog);
+  T* dst = used == 1 ? out : work;
+  if constexpr (gp::kIsTree<Eval>) {
+    tree_product_kernel<T, Eval, RC, ROWS><<<grid, kThreads, 0, stream>>>(
+        x, v, params, dst, n, r, tiles_per_split * kTile, prog);
+  } else {
+    product_kernel<T, Eval, RC, ROWS><<<grid, kThreads, 0, stream>>>(
+        x, v, params, dst, n, r, tiles_per_split * kTile, prog);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || used == 1) return static_cast<int>(err);
   return static_cast<int>(gp::launch_sum_splits<T>(
@@ -578,11 +545,11 @@ int launch_matvec(const T* x, const T* v, const T* params, T* out, T* work,
                   cudaStream_t stream) {
   switch (family) {
     case gp::kSE:
-      return launch_product<T, SEValue<T>>(x, v, params, out, work, n, r, prog, splits,
-                                           stream);
+      return launch_product<T, gp::LeafValue<T, gp::SEFold<T>>>(x, v, params, out, work, n, r,
+                                                                prog, splits, stream);
     case gp::kPeriodic:
-      return launch_product<T, PeriodicValue<T>>(x, v, params, out, work, n, r, prog, splits,
-                                                 stream);
+      return launch_product<T, gp::LeafValue<T, gp::PeriodicFold<T>>>(x, v, params, out, work,
+                                                                      n, r, prog, splits, stream);
     default:  // Matern, RQ, trees; anything else is refused there
       return gp::launch_matvec_ext(x, v, params, out, work, n, r, family, prog, splits,
                                    stream);

@@ -1,5 +1,5 @@
-// B4, B5 for Matern 3/2, Matern 5/2, RQ and (B4) Sum/Product trees, float64
-// (the kernels: matvec.cuh).
+// B4, B5 for Matern 3/2, Matern 5/2 and RQ, float64
+// (the kernels: matvec.cuh; B4's Sum/Product trees: matvec_tree_f64.cu).
 
 #include "matvec.cuh"
 
@@ -11,17 +11,16 @@ int launch_matvec_ext(const double* x, const double* v, const double* params, do
   using T = double;
   switch (family) {
     case kMatern32:
-      return launch_product<T, Matern32Value<T>>(x, v, params, out, work, n, r, prog, splits,
-                                                 stream);
+      return launch_product<T, LeafValue<T, Matern32Fold<T>>>(x, v, params, out, work, n, r,
+                                                            prog, splits, stream);
     case kMatern52:
-      return launch_product<T, Matern52Value<T>>(x, v, params, out, work, n, r, prog, splits,
-                                                 stream);
+      return launch_product<T, LeafValue<T, Matern52Fold<T>>>(x, v, params, out, work, n, r,
+                                                            prog, splits, stream);
     case kRQ:
-      return launch_product<T, RQValue<T>>(x, v, params, out, work, n, r, prog, splits,
-                                           stream);
+      return launch_product<T, LeafValue<T, RQFold<T>>>(x, v, params, out, work, n, r, prog,
+                                                      splits, stream);
     case kTree:
-      return launch_product<T, TreeValue<T>>(x, v, params, out, work, n, r, prog, splits,
-                                             stream);
+      return launch_matvec_tree(x, v, params, out, work, n, r, prog, splits, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

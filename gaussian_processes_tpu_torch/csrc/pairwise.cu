@@ -5,18 +5,15 @@
 
 namespace {
 
-dim3 grid_for(int n, int m, int chains) {
-  const int gx = (m + kCols - 1) / kCols;
-  const int gy = std::min((n + kRows - 1) / kRows, kMaxGridY);
-  return dim3(gx, gy, chains);
-}
-
 template <typename T, typename Eval>
 void launch_k_eval(const T* x1, const T* x2, const T* params, T* out, int n, int m,
                    int chains, int stride, int with_diag, const gp::TreeProgram& prog,
                    cudaStream_t stream) {
-  pairwise_k_kernel<T, Eval><<<grid_for(n, m, chains), kCols, 0, stream>>>(
-      x1, x2, params, out, n, m, with_diag, stride, prog);
+  constexpr int C = vec_elems<T>();
+  const dim3 grid((m + 32 * C - 1) / (32 * C),
+                  std::min((n + kDerivRows - 1) / kDerivRows, kMaxGridY), chains);
+  pairwise_k_kernel<T, Eval><<<grid, kDerivThreads, 0, stream>>>(x1, x2, params, out, n, m,
+                                                                 with_diag, stride, prog);
 }
 
 // `tree`: the host encoding of a family kTree program (closed_forms.cuh,
@@ -41,27 +38,27 @@ int launch_k(int device, const void* x1, const void* x2, const void* params, voi
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (family) {
     case gp::kSE:
-      launch_k_eval<T, LeafK<T, gp::SEForm<T>>>(a, b, th, o, n, m, chains, stride, with_diag,
-                                                prog, st);
+      launch_k_eval<T, gp::LeafValue<T, gp::SEFold<T>>>(a, b, th, o, n, m, chains, stride,
+                                                        with_diag, prog, st);
       break;
     case gp::kPeriodic:
-      launch_k_eval<T, LeafK<T, gp::PeriodicForm<T>>>(a, b, th, o, n, m, chains, stride,
-                                                      with_diag, prog, st);
+      launch_k_eval<T, gp::LeafValue<T, gp::PeriodicFold<T>>>(a, b, th, o, n, m, chains,
+                                                              stride, with_diag, prog, st);
       break;
     case gp::kMatern32:
-      launch_k_eval<T, LeafK<T, gp::Matern32Form<T>>>(a, b, th, o, n, m, chains, stride,
-                                                      with_diag, prog, st);
+      launch_k_eval<T, gp::LeafValue<T, gp::Matern32Fold<T>>>(a, b, th, o, n, m, chains,
+                                                              stride, with_diag, prog, st);
       break;
     case gp::kMatern52:
-      launch_k_eval<T, LeafK<T, gp::Matern52Form<T>>>(a, b, th, o, n, m, chains, stride,
-                                                      with_diag, prog, st);
+      launch_k_eval<T, gp::LeafValue<T, gp::Matern52Fold<T>>>(a, b, th, o, n, m, chains,
+                                                              stride, with_diag, prog, st);
       break;
     case gp::kRQ:
-      launch_k_eval<T, LeafK<T, gp::RQForm<T>>>(a, b, th, o, n, m, chains, stride, with_diag,
-                                                prog, st);
+      launch_k_eval<T, gp::LeafValue<T, gp::RQFold<T>>>(a, b, th, o, n, m, chains, stride,
+                                                        with_diag, prog, st);
       break;
     case gp::kTree:
-      launch_k_eval<T, TreeK<T>>(a, b, th, o, n, m, chains, stride, with_diag, prog, st);
+      launch_k_eval<T, gp::TreeValue<T>>(a, b, th, o, n, m, chains, stride, with_diag, prog, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

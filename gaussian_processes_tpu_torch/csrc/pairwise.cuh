@@ -15,22 +15,25 @@
 // hyperparameters are read from device memory through a pointer, so the
 // host never synchronises to read them.
 //
-// B1: a block of 128 threads spans 128 neighbouring columns, each thread
-// keeps its x2 value in a register and walks kRows rows, and x1[row] is one
-// broadcast load for the whole warp.  Ragged edges are masked; the diagonal
-// is row == col on global indices (the TPU body needed iota masks for this).
+// B1, B2a, B2b share one layout.  A block of 256 threads covers kDerivRows
+// rows by 32 C columns, C = 16 bytes / sizeof(T): the block stages its rows'
+// x1 in shared memory, a thread keeps its C columns' x2 in registers and
+// walks kDerivRowsPerWarp rows, unrolled, and the C values of a plane's row
+// go out as one 16-byte store (per element where m % C != 0 leaves rows
+// unaligned).  Ragged edges are masked; the diagonal is row == col on global
+// indices (the TPU body needed iota masks for this).
 //
-// B2a, B2b: one tile kernel over what an element evaluates (Eval): the P
-// Jacobian values (B2a), the P(P+1)/2 upper-triangle Hessian values stored
-// to all P x P planes (B2b, every plane from one evaluation of E), or one
-// Hessian value (B2b for hessian_pair, whose callers rely on one-slice peak
-// memory), a template per upper-triangle entry that evaluates that value's
-// closed form alone (closed_forms.cuh, HessValue).  A block of 256 threads
-// covers kDerivRows rows by 32 C columns, C = 16 bytes / sizeof(T): the
-// block stages its rows' x1 in shared memory, a thread keeps its C columns'
-// x2 in registers and walks kDerivRowsPerWarp rows, unrolled, and the C
-// values of a plane's row go out as one 16-byte store (per element where
-// m % C != 0 leaves rows unaligned).  The forms keep the accurate expf /
+// B1 evaluates the folded element of closed_forms.cuh, B4's (LeafValue,
+// TreeValue): constants folded once per block, ex2.approx, the hand-reduced
+// sine and RQ's log1p_base in float32, no divide in the element, and h^2 at
+// the store.  A pivot row 1 x n is one launch, bit for bit the column n x 1.
+//
+// B2a, B2b: what an element evaluates (Eval) is the P Jacobian values
+// (B2a), the P(P+1)/2 upper-triangle Hessian values stored to all P x P
+// planes (B2b, every plane from one evaluation of E), or one Hessian value
+// (B2b for hessian_pair, whose callers rely on one-slice peak memory), a
+// template per upper-triangle entry that evaluates that value's closed form
+// alone (closed_forms.cuh, HessValue).  The forms keep the accurate expf /
 // sinf.
 //
 // Chains: the samplers evaluate C parameter vectors at once (the JAX
@@ -40,10 +43,10 @@
 // and the bound are C times one matrix's, and at the samplers' N=500 one
 // matrix alone (1 MB) would fill a few dozen blocks of the card.
 //
-// Families: B1 evaluates every leaf form of closed_forms.cuh and, as
-// kTree, a Sum/Product tree of them (TreeK: the program by value, the
-// parameters through the pointer, the whole k per element), single and
-// over the chain table.  B2a and B2b take the leaves only: the JAX package
+// Families: B1 evaluates every leaf of closed_forms.cuh and, as kTree, a
+// Sum/Product tree of them (TreeValue: the program as a sum of products,
+// the kernel's __grid_constant__ parameter), single and over the chain
+// table.  B2a and B2b take the leaves only: the JAX package
 // builds a tree's derivatives at matrix level from its children
 // (models/composite.py).  The kernels are templates over the element's
 // evaluator; pairwise.cu instantiates B1 and SE's and periodic's B2,
@@ -82,60 +85,92 @@ int launch_deriv_ext(const double* x1, const double* x2, const double* params, d
 
 namespace {
 
-constexpr int kCols = 128;  // B1: threads per block, one column each
-constexpr int kRows = 16;   // B1: rows walked by each thread
 constexpr int kMaxGridY = 65535;
-constexpr int kDerivWarps = 8;                                  // B2: warps per block
-constexpr int kDerivThreads = 32 * kDerivWarps;                 // B2: threads per block
-constexpr int kDerivRowsPerWarp = 4;                            // B2: rows each thread walks
-constexpr int kDerivRows = kDerivWarps * kDerivRowsPerWarp;     // B2: rows per block
+constexpr int kDerivWarps = 8;                                  // B1, B2: warps per block
+constexpr int kDerivThreads = 32 * kDerivWarps;                 // B1, B2: threads per block
+constexpr int kDerivRowsPerWarp = 4;                            // B1, B2: rows each thread walks
+constexpr int kDerivRows = kDerivWarps * kDerivRowsPerWarp;     // B1, B2: rows per block
+constexpr int kTreeRows = 2;  // B1's tree: rows a thread evaluates at once
 
-// B1's element: one leaf's closed form, its parameters in registers ...
-template <typename T, typename Form>
-struct LeafK {
-  T th[Form::P];
-  __device__ LeafK(const T* params, const gp::TreeProgram&) {
+// B1's store of one row's C values: scaled, the diagonal term where row ==
+// col, one 16-byte store where the row allows
+template <typename T, int C>
+__device__ __forceinline__ void store_k_row(T* out, const T* val, T scale, T diag, int with_diag,
+                                            int row, int m, int col0, int valid, bool vec) {
+  T v[C];
 #pragma unroll
-    for (int q = 0; q < Form::P; ++q) th[q] = params[q];
+  for (int c = 0; c < C; ++c) {
+    v[c] = val[c] * scale;
+    if (with_diag && row == col0 + c) v[c] += diag;
   }
-  __device__ __forceinline__ int n_params() const { return Form::P; }
-  __device__ __forceinline__ T operator()(T d) const { return Form::k(d, th); }
-};
+  stv(out + static_cast<size_t>(row) * m + col0, v, valid, vec);
+}
 
-// ... or a tree's (closed_forms.cuh, tree_k), its parameters read through the
-// pointer: every thread of a warp loads the same address
-template <typename T>
-struct TreeK {
-  const T* th;
-  gp::TreeProgram prog;
-  __device__ TreeK(const T* params, const gp::TreeProgram& p) : th(params), prog(p) {}
-  __device__ __forceinline__ int n_params() const { return prog.n_params; }
-  __device__ __forceinline__ T operator()(T d) const { return gp::tree_k(prog, d, th); }
-};
-
-// chain c = blockIdx.z reads row c of the parameter table (params + c *
-// stride: the kernel's parameters, then the diagonal term) and writes the
-// c-th (n, m) matrix; one matrix is the case gridDim.z = 1
+// B1: K[i, j] = scale v(x1_i - x2_j) (+ the diagonal term where row == col)
+// for the folded element Eval (closed_forms.cuh: gp::LeafValue, scale h^2;
+// gp::TreeValue, scale the product of h^2 of a one-term tree, else 1), in
+// B2's layout.  Chain c = blockIdx.z reads row c of the parameter table
+// (params + c * stride: the kernel's parameters, then the diagonal term) and
+// writes the c-th (n, m) matrix; one matrix is the case gridDim.z = 1.
 template <typename T, typename Eval>
-__global__ void __launch_bounds__(kCols)
+__global__ void __launch_bounds__(kDerivThreads, 1)
 pairwise_k_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                  const T* __restrict__ params, T* __restrict__ out,
-                  int n, int m, int with_diag, int stride, gp::TreeProgram prog) {
-  const int col = blockIdx.x * kCols + threadIdx.x;
-  if (col >= m) return;
+                  const T* __restrict__ params, T* __restrict__ out, int n, int m,
+                  int with_diag, int stride, const __grid_constant__ gp::TreeProgram prog) {
+  constexpr int C = vec_elems<T>();
+  __shared__ T xr[kDerivRows];
   params += static_cast<size_t>(blockIdx.z) * stride;
   out += static_cast<size_t>(blockIdx.z) * n * m;
   const Eval ev(params, prog);
+  const T scale = static_cast<T>(ev.scale[0]);
   const T diag = with_diag ? params[ev.n_params()] : T(0);
-  const T xc = x2[col];
-  for (int rb = blockIdx.y; rb * kRows < n; rb += gridDim.y) {
-    const int row0 = rb * kRows;
-    const int rows = min(kRows, n - row0);
-    for (int r = 0; r < rows; ++r) {
-      const int row = row0 + r;
-      T v = ev(x1[row] - xc);
-      if (with_diag && row == col) v += diag;
-      out[static_cast<size_t>(row) * m + col] = v;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.x * (32 * C) + lane * C;
+  T xc[C];  // columns past m compute with column m - 1 and store nothing
+#pragma unroll
+  for (int c = 0; c < C; ++c) xc[c] = x2[min(col0 + c, m - 1)];
+  const int valid = m - col0;
+  const bool vec = m % C == 0;
+  for (int rb = blockIdx.y; rb * kDerivRows < n; rb += gridDim.y) {
+    const int row_base = rb * kDerivRows;
+    __syncthreads();  // every thread is done with the previous rows
+    if (threadIdx.x < kDerivRows) xr[threadIdx.x] = x1[min(row_base + threadIdx.x, n - 1)];
+    __syncthreads();
+    if constexpr (gp::kIsTree<Eval>) {
+      // a tree: kTreeRows rows' C elements at once, the row loop rolled
+      // (the element is long: unrolled it overflowed the instruction cache)
+#pragma unroll 1
+      for (int q = 0; q < kDerivRowsPerWarp; q += kTreeRows) {
+        T d[kTreeRows * C], v[kTreeRows * C];
+#pragma unroll
+        for (int g = 0; g < kTreeRows; ++g) {
+          const T xi = xr[(q + g) * kDerivWarps + warp];
+#pragma unroll
+          for (int c = 0; c < C; ++c) d[g * C + c] = xi - xc[c];
+        }
+        ev.eval(d, v);
+#pragma unroll
+        for (int g = 0; g < kTreeRows; ++g) {
+          const int row = row_base + (q + g) * kDerivWarps + warp;
+          if (row < n) {
+            store_k_row<T, C>(out, v + g * C, scale, diag, with_diag, row, m, col0, valid, vec);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kDerivRowsPerWarp; ++q) {
+        const int ii = q * kDerivWarps + warp;  // the block's warps write neighbouring rows
+        const int row = row_base + ii;
+        if (row >= n) break;
+        const T xi = xr[ii];
+        T d[C], v[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) d[c] = xi - xc[c];
+        ev.eval(d, v);
+        store_k_row<T, C>(out, v, scale, diag, with_diag, row, m, col0, valid, vec);
+      }
     }
   }
 }

@@ -14,8 +14,8 @@ The children are ``nn.Module`` fields ``k1`` and ``k2``; ``params`` /
 MLE and sampler layers take a tree as they take a leaf.  The elementwise
 ``k_fn`` is an instance method (the children own their parameters); K is
 built by kernel B1's tree body on a card (``ops.pairwise.pairwise_matrix``
-flattens the tree into a postfix program), and the derivatives at matrix
-level from the children, as the JAX package builds them.  ``cuda_family``
+expands the tree into a sum of products of its leaves), and the derivatives
+at matrix level from the children, as the JAX package builds them.  ``cuda_family``
 stays None: kernel B5 takes leaves only.
 """
 

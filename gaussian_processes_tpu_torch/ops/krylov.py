@@ -181,9 +181,10 @@ def pivoted_cholesky(kernel, x, rank: int, jitter: float = 1e-6) -> torch.Tensor
     """Rank-k pivoted Cholesky of K_f(x, x), built matrix-free.
 
     Greedy diagonal pivoting; each step builds one kernel row K[piv, :]
-    (kernel B1, or B6 for ARD, on a card: a 1 x n output keeps every thread
-    of the launch on an element and its stores on one row; the row equals
-    the column K[:, piv] bit for bit, since x_piv - x_i only changes sign)
+    (``pairwise.pivot_rows``: kernel B1 on the parameters read once before
+    the loop, or B6 for ARD, on a card; a 1 x n output keeps the launch's
+    stores on one row; the row equals the column K[:, piv] bit for bit,
+    since x_piv - x_i only changes sign)
     and multiplies the whole factor, O(n k) per step.  The pivot stays on
     the device (no host read per step).  Once the residual diagonal falls
     below 1e3 * eps * max(diag), later columns are frozen to zero: past that
@@ -196,9 +197,10 @@ def pivoted_cholesky(kernel, x, rank: int, jitter: float = 1e-6) -> torch.Tensor
     d = kernel.kdiag(x).to(dtype)  # (n,)
     L = torch.zeros((n, rank), dtype=dtype, device=x.device)
     floor = torch.max(d) * (1e3 * torch.finfo(dtype).eps)
+    row = pairwise.pivot_rows(kernel, x)
     for j in range(rank):
         piv = torch.argmax(d).reshape(1)
-        c = kernel(x.index_select(0, piv), x)[0].to(dtype)  # K[piv, :]
+        c = row(x.index_select(0, piv)).to(dtype)  # K[piv, :]
         d_piv = d.index_select(0, piv)[0]
         lp = L.index_select(0, piv)[0]  # (rank,); columns >= j are still zero
         col = (c - L @ lp) / torch.sqrt(torch.clamp_min(d_piv, jitter))

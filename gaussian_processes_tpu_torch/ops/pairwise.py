@@ -10,9 +10,12 @@ tensors on a CUDA card it launches the hand-written kernel of
 
 * ``pairwise_matrix`` (B1) replaces ``_tile_body``: K[i, j] = k(x1_i - x2_j)
   with an optional (s^2 + jitter) on the global diagonal, written once.  A
-  Sum/Product tree goes to the kernel as a postfix program
-  (``_tree_program``, the counterpart of ``tile_program``), at most
-  ``MAX_TREE_LEAVES`` leaves.
+  Sum/Product tree goes to the kernel as a sum of products of its leaves
+  (``_tree_flat``, ``_tree_program``: the counterpart of ``tile_program``),
+  at most ``MAX_TREE_LEAVES`` leaves.  B1 and B4 evaluate one folded element
+  (``folded_values``; ``pairwise_matrix_folded`` is B1's own arithmetic),
+  and ``pivot_rows`` gives the pivoted Cholesky its rows on parameters read
+  once.
 * ``pairwise_jacobian`` (B2a) replaces ``_jac_tile_body``: (P, n, m).
 * ``pairwise_matrix_chains`` and ``pairwise_jacobian_chains`` are B1 and
   B2a over a (C, P) table of C chains' parameters, one launch each: the
@@ -104,7 +107,6 @@ def _family(kernel) -> int:
 #: the most leaves a tree may have on the card (gp::kMaxTreeLeaves)
 MAX_TREE_LEAVES = 8
 _TREE = 5  # gp::kTree
-_SUM, _PROD = -1, -2  # gp::kTreeSum, gp::kTreeProd
 #: the launch counters' suffix of each family (SE and periodic count under
 #: the kernel's bare name)
 _COUNTER_SUFFIX = {0: "", 1: "", 2: "_matern32", 3: "_matern52", 4: "_rq", _TREE: "_tree"}
@@ -135,29 +137,43 @@ def _tree_structure(kernel):
 
 
 @functools.lru_cache(maxsize=None)
-def _tree_program(struct):
-    """The postfix program of a tree structure in the kernels' host encoding
-    (csrc/closed_forms.cuh, ``parse_tree``): {n_nodes, op_0, offset_0, ...},
-    a leaf's op its family and offset its first parameter (k1's before
-    k2's), a sum or product's op -1 or -2.  Cached per structure, as the
-    JAX package caches the composed function, so the array outlives every
-    launch that points at it."""
-    nodes = []
+def _tree_flat(struct):
+    """A tree structure as a sum of products of its leaves: ``(leaves,
+    masks)``, ``leaves`` a tuple of (class, offset of its first parameter)
+    in k1-before-k2 order and ``masks`` one int per product whose bit l
+    selects leaf l.  A sum concatenates its children's products, a product
+    multiplies them out (k1's outer): (a + b)(c + d) gives ac, ad, bc, bd.
+    The kernels and ``folded_values`` evaluate this form; cached per
+    structure."""
+    leaves = []
 
-    def walk(node, offset):
+    def walk(node):
         if node[0] == "leaf":
-            nodes.append((node[1].cuda_family, offset))
-            return offset + len(node[1].param_names)
-        offset = walk(node[2], walk(node[1], offset))
-        nodes.append((_SUM if node[0] == "sum" else _PROD, 0))
-        return offset
+            offset = sum(len(cls.param_names) for cls, _ in leaves)
+            leaves.append((node[1], offset))
+            return [1 << (len(leaves) - 1)]
+        left, right = walk(node[1]), walk(node[2])
+        if node[0] == "sum":
+            return left + right
+        return [a | b for a in left for b in right]
 
-    walk(struct, 0)
-    leaves = (len(nodes) + 1) // 2
-    if leaves > MAX_TREE_LEAVES:
-        raise ValueError(f"a tree of {leaves} leaves; the CUDA kernels take at most "
+    masks = walk(struct)
+    return tuple(leaves), tuple(masks)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_program(struct):
+    """The sum of products of a tree structure (``_tree_flat``) in the
+    kernels' host encoding (csrc/closed_forms.cuh, ``parse_tree``):
+    {n_leaves, family_0, offset_0, ..., n_terms, mask_0, ...}.  Cached per
+    structure, as the JAX package caches the composed function, so the
+    array outlives every launch that points at it."""
+    leaves, masks = _tree_flat(struct)
+    if len(leaves) > MAX_TREE_LEAVES:
+        raise ValueError(f"a tree of {len(leaves)} leaves; the CUDA kernels take at most "
                          f"{MAX_TREE_LEAVES}")
-    code = [len(nodes)] + [v for node in nodes for v in node]
+    code = [len(leaves)] + [v for cls, offset in leaves for v in (cls.cuda_family, offset)]
+    code += [len(masks), *masks]
     return (ctypes.c_int * len(code))(*code)
 
 
@@ -285,6 +301,42 @@ def pairwise_matrix_reference(kernel, x1, x2, *, noise=None, jitter=0.0) -> torc
     if noise is not None:
         K.diagonal().add_(_diag_term(noise, jitter, x1))
     return K
+
+
+def pivot_rows(kernel, x):
+    """``row(xp)`` -> K(xp, x)[0], the (n,) kernel row of one point ``xp``
+    (a (1,) or (1, D) tensor on x's device), for a pivoted Cholesky that
+    builds one row per step.  On a card a 1-D leaf or tree reads its
+    parameters once, here, and each row is one B1 launch on that pointer
+    into a buffer the rows share: a row is valid until the next call, and
+    equals ``pairwise_matrix(kernel, xp, x)`` bit for bit.  Elsewhere (the
+    CPU, ARD) each row is ``kernel(xp, x)[0]``."""
+    x = torch.as_tensor(x)
+    if x.device.type != "cuda" or x.ndim != 1:
+        return lambda xp: kernel(xp, x)[0]
+    x, _ = _vectors(x, x)
+    params = _params_like(kernel, x).contiguous()
+    _check_cuda("pivot_rows", x, params)
+    n = x.shape[0]
+    if n > _INT32_MAX:
+        raise ValueError("pivot_rows: n must fit in int32")
+    family, tree, suffix = _launch_family(kernel)
+    out = torch.empty((1, n), dtype=x.dtype, device=x.device)
+    launch = _build.entry("gp_pairwise_k", x.dtype)
+    args = (ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(params.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), 1, n, family, tree, 0, _build.stream_of(x))
+    index = x.device.index
+    counter = "pairwise_k" + suffix
+
+    def row(xp, keep=(x, params, out)):  # keep: the tensors behind the pointers
+        if xp.shape != (1,) or xp.device != x.device or xp.dtype != x.dtype:
+            raise ValueError(f"pivot_rows: the point must be (1,) {x.dtype} on {x.device}, got "
+                             f"{tuple(xp.shape)} {xp.dtype} on {xp.device}")
+        _build.check(launch(index, xp.data_ptr(), *args), "gp_pairwise_k")
+        _build.launch_counts[counter] += 1
+        return out[0]
+
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -705,32 +757,143 @@ _FOLD_BASE = {torch.float32: math.log2(math.e), torch.float64: 1.0}
 _SQRT3, _SQRT5 = 1.7320508075688772, 2.23606797749979
 
 
+# sin_reduced's constants (csrc/closed_forms.cuh): 1 / pi and pi as float(pi)
+# plus the rest for float32's two FMAs; for float64 pi in three parts of at
+# most 26 bits, so that k times the first two is exact in the plain version
+_INV_PI = 1.0 / math.pi
+_PI_F32 = (3.1415927410125732, -8.742278012618954e-08)
+_PI_F64 = (3.1415926218032837, 3.1786509424591713e-08, 1.2246467991473532e-16)
+# the sine's Taylor coefficients 1 / 3!, ..., 1 / 13!, signed, highest first
+_SIN_COEFFS = tuple((-1) ** (k // 2) / math.factorial(k) for k in (13, 11, 9, 7, 5, 3))
+# log2(1 + q)'s series coefficients (-1)^(k+1) / (k ln 2), k = 6 .. 1, and
+# where lg2.approx takes over (log1p_base)
+_LOG1P_COEFFS = tuple((-1) ** (k + 1) / (k * math.log(2.0)) for k in range(6, 0, -1))
+_LOG1P_SERIES_BELOW = 0.0625
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) for float32 tensors, through float64: a b is exact there,
+    so only the sum rounds (twice, to float64 and float32)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def sin_reduced(u: torch.Tensor) -> torch.Tensor:
+    """+-sin(u) as the kernels' folded element takes it (``sin_reduced`` in
+    csrc/closed_forms.cuh): k = rint(u / pi), r = u - k pi (float32: two
+    FMAs with pi = float(pi) + rest, then sin r as its Taylor series to
+    r^13, Horner in r^2; float64: three parts of pi, then sin r).  The sign
+    is (-1)^k; the leaves take its square."""
+    k = torch.round(u * _INV_PI)
+    if u.dtype == torch.float64:
+        a, b, c = _PI_F64
+        return torch.sin(((u - k * a) - k * b) - k * c)
+    r = _fma32(-k, torch.tensor(_PI_F32[0], dtype=u.dtype), u)
+    r = _fma32(-k, torch.tensor(_PI_F32[1], dtype=u.dtype), r)
+    r2 = r * r
+    p = torch.full_like(r, _SIN_COEFFS[0])
+    for coef in _SIN_COEFFS[1:]:
+        p = p * r2 + coef
+    return (r * r2) * p + r
+
+
+def log1p_base(q: torch.Tensor) -> torch.Tensor:
+    """log_base(1 + q), q >= 0, as the kernels' folded RQ element takes it
+    (``log1p_base`` in csrc/closed_forms.cuh): float32, base 2, the series
+    q (1 / ln 2 - q / (2 ln 2) + ... - q^5 / (6 ln 2)) below q = 1/16 and
+    log2(1 + q) from there (the kernel's lg2.approx); float64 ln(1 + q)."""
+    if q.dtype == torch.float64:
+        return torch.log(1.0 + q)
+    p = torch.full_like(q, _LOG1P_COEFFS[0])
+    for coef in _LOG1P_COEFFS[1:]:
+        p = p * q + coef
+    return torch.where(q < _LOG1P_SERIES_BELOW, p * q, torch.log2(1.0 + q))
+
+
+def _leaf_exponent(fam: int, d, th, dtype):
+    """The folded leaf (csrc/closed_forms.cuh, ``*Fold``): its exponent e in
+    neg_exp's base, its multiplier (None where it is 1) and h^2 in float64,
+    from the leaf's float64 parameters ``th`` (scalars or broadcastable)."""
+    h, w = th[0], th[1]
+    if fam == 0:  # SE: e = t^2, t = d s
+        e = torch.square(d * (math.sqrt(_FOLD_C2[dtype]) / w).to(dtype))
+        return e, None, h * h
+    if fam == 1:  # periodic: e = g^2, g = sin(d / 2p) 2s
+        g = sin_reduced(d * (0.5 / th[2]).to(dtype)) * (2.0 * math.sqrt(_FOLD_C2[dtype]) / w).to(dtype)
+        return g * g, None, h * h
+    if fam in (2, 3):  # Matérn: e = t = |d| s, the polynomial in u = t / L
+        base = _FOLD_BASE[dtype]
+        t = torch.abs(d) * ((_SQRT3 if fam == 2 else _SQRT5) * base / w).to(dtype)
+        u = t * (1.0 / base)
+        return t, (1.0 + u) if fam == 2 else (1.0 + u * (1.0 + u * (1.0 / 3.0))), h * h
+    # RQ: e = a log_base(1 + t^2), t = d s
+    a = th[2]
+    t = d * (1.0 / (w * torch.sqrt(2.0 * a))).to(dtype)
+    return a.to(dtype) * log1p_base(t * t), None, h * h
+
+
+def _folded_k(kernel, d, theta, dtype):
+    """B1's and B4's element (the unscaled plane) and its float64 scale, for
+    a leaf or a tree; ``theta`` the (P, ...) float64 parameters."""
+    neg_exp = torch.exp2 if dtype == torch.float32 else torch.exp
+    if not is_tree(kernel):
+        e, mult, h2 = _leaf_exponent(_family(kernel), d, theta, dtype)
+        E = neg_exp(-e)
+        return (E if mult is None else mult * E), h2
+    leaves, masks = _tree_flat(_tree_structure(kernel))
+    parts = [_leaf_exponent(cls.cuda_family, d, theta[off:off + len(cls.param_names)], dtype)
+             for cls, off in leaves]
+    out, scale = None, None
+    for mask in masks:
+        E, M, c = torch.zeros((), dtype=dtype), torch.ones((), dtype=dtype), 1.0
+        for bit, (e, mult, h2) in enumerate(parts):
+            if mask >> bit & 1:
+                E = E + e
+                M = M if mult is None else M * mult
+                c = c * h2
+        k = M * neg_exp(-E)
+        if len(masks) == 1:
+            return k, c
+        out = c.to(dtype) * k if out is None else out + c.to(dtype) * k
+        scale = torch.ones_like(c)
+    return out, scale
+
+
 def folded_values(kernel, x1, x2, jac: bool = False):
-    """B4's (``jac`` false) or B5's arithmetic per element in plain PyTorch:
-    the unscaled (n, m) planes and the float64 constants that multiply each
-    plane's row sums, ``k = scale[0] * planes[0]`` and ``dK/dtheta_p =
-    scale[p] * planes[p]``.  SE: t = (x1_i - x2_j) s with s = c / w,
-    E = exp2(-t^2) in float32, exp(-t^2) in float64; planes E (and E t^2).
-    Periodic: g = sin((x1_i - x2_j) / 2p) 2 s; planes E (and E g^2,
-    E d sin u cos u).  Matérn: t = |x1_i - x2_j| s with s = c' L / w (c' =
-    sqrt(3), sqrt(5); L = log2(e) in float32, 1 in float64), E = exp2(-t)
-    or exp(-t), u = t / L; planes (1 + u) E or (1 + u (1 + u / 3)) E (and
-    u^2 E or u^2 (1 + u) E).  RQ: t = (x1_i - x2_j) s with s = 1 / (w
-    sqrt(2a)), B = 1 + t^2, B^-a = exp2(-a log2 B) or exp(-a ln B); planes
-    B^-a (and t^2 B^-a / B, B^-a (t^2 / B - ln B)).  A tree: the plain K,
-    scale 1.  The difference is taken first and then scaled: pre-scaled
-    coordinates lose float32 digits where |x| / w is large."""
+    """B1's and B4's (``jac`` false) or B5's arithmetic per element in plain
+    PyTorch: the unscaled (n, m) planes and the float64 constants that
+    multiply each plane, ``k = scale[0] * planes[0]`` and ``dK/dtheta_p =
+    scale[p] * planes[p]``.
+
+    K is the folded element of csrc/closed_forms.cuh: a leaf's exponent e
+    and multiplier m, m exp2(-e) in float32, m exp(-e) in float64, with
+    c^2 = log2(e) / 2 or 1 / 2 and L = log2(e) or 1.  SE: e = t^2, t =
+    (x1_i - x2_j) s, s = c / w.  Periodic: e = g^2, g = ``sin_reduced``((x1_i
+    - x2_j) / 2p) 2s.  Matérn: e = t = |x1_i - x2_j| s, s = c' L / w (c' =
+    sqrt(3), sqrt(5)), m = 1 + u or 1 + u (1 + u / 3), u = t / L.  RQ: e =
+    a ``log1p_base``(t^2), t = (x1_i - x2_j) s, s = 1 / (w sqrt(2a)).  The
+    scale is h^2.  A tree is a sum of products of its leaves (``_tree_flat``):
+    per product the sum of its leaves' exponents in leaf order and the
+    product of their multipliers, one exponential; one product is scaled by
+    its leaves' h^2 (in float64) outside, several each by its own in the
+    element (rounded to x's dtype) and the scale is 1.
+
+    B5 (``jac``): SE planes E and E t^2; periodic E, E g^2, E d sin u cos u
+    (u = d / 2p, accurate sin and cos); Matérn (1 + u) E or (1 + u (1 + u /
+    3)) E and u^2 E or u^2 (1 + u) E; RQ B^-a, t^2 B^-a / B, B^-a (t^2 / B -
+    ln B) with B = 1 + t^2 and log2 B or ln B.  The difference is taken
+    first and then scaled: pre-scaled coordinates lose float32 digits where
+    |x| / w is large."""
     x1, x2 = _vectors(x1, x2)
-    if is_tree(kernel) and not jac:
-        one = torch.ones((), dtype=torch.float64, device=x1.device)
-        return [pairwise_matrix_reference(kernel, x1, x2)], [one]
     dtype = x1.dtype
+    theta = kernel.params.to(device=x1.device, dtype=torch.float64)
+    d = pairwise_diff(x1, x2)
+    if not jac:
+        k, scale = _folded_k(kernel, d, theta, dtype)
+        return [k], [torch.as_tensor(scale, dtype=torch.float64, device=x1.device)]
     c2 = _FOLD_C2[dtype]
     base = _FOLD_BASE[dtype]
     neg_exp = torch.exp2 if dtype == torch.float32 else torch.exp
-    theta = kernel.params.to(device=x1.device, dtype=torch.float64)
     h, w = theta[0], theta[1]
-    d = pairwise_diff(x1, x2)
     fam = _family(kernel)
     if fam in (2, 3):  # Matérn 3/2, 5/2
         c = _SQRT3 if fam == 2 else _SQRT5
@@ -738,8 +901,6 @@ def folded_values(kernel, x1, x2, jac: bool = False):
         u = t * (1.0 / base)
         E = neg_exp(-t)
         poly = (1.0 + u) if fam == 2 else (1.0 + u * (1.0 + u * (1.0 / 3.0)))
-        if not jac:
-            return [poly * E], [h * h]
         if fam == 2:
             return [poly * E, (u * u) * E], [2.0 * h, h * h / w]
         return [poly * E, ((u * u) * (1.0 + u)) * E], [2.0 * h, h * h / (3.0 * w)]
@@ -750,8 +911,6 @@ def folded_values(kernel, x1, x2, jac: bool = False):
         B = 1.0 + t2
         lb = torch.log2(B) if dtype == torch.float32 else torch.log(B)
         Ba = neg_exp(-(a.to(dtype) * lb))
-        if not jac:
-            return [Ba], [h * h]
         q = t2 / B
         return ([Ba, q * Ba, Ba * (q - lb * (1.0 / base))],
                 [2.0 * h, 2.0 * h * h * a / w, h * h])
@@ -759,18 +918,39 @@ def folded_values(kernel, x1, x2, jac: bool = False):
     if fam == 0:
         t2 = torch.square(d * s)
         E = neg_exp(-t2)
-        if not jac:
-            return [E], [h * h]
         return [E, E * t2], [2.0 * h, h * h / (c2 * w)]
     p = theta[2]
     u = d * (0.5 / p).to(dtype)
     sn = torch.sin(u)
     g2 = torch.square(sn * (2.0 * s))
     E = neg_exp(-g2)
-    if not jac:
-        return [E], [h * h]
     return ([E, E * g2, E * (d * (sn * torch.cos(u)))],
             [2.0 * h, h * h / (c2 * w), 2.0 * h * h / (w * w * p * p)])
+
+
+def pairwise_matrix_folded(kernel, x1, x2, *, noise=None, jitter=0.0) -> torch.Tensor:
+    """B1's own arithmetic in plain PyTorch (its oracle on the card): the
+    folded element of ``folded_values`` times its scale rounded to x's
+    dtype, as the kernel scales at the store, plus the diagonal term."""
+    x1, x2 = _vectors(x1, x2)
+    (k,), (scale,) = folded_values(kernel, x1, x2)
+    K = k * scale.to(x1.dtype)
+    if noise is not None:
+        K.diagonal().add_(_diag_term(noise, jitter, x1))
+    return K
+
+
+def pairwise_matrix_chains_folded(kernel_template, x, params, diag) -> torch.Tensor:
+    """B1's own arithmetic over a (C, P) chain table, as
+    ``pairwise_matrix_folded`` for each chain: (C, n, n)."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params).to(torch.float64)
+    theta = params.T[:, :, None, None]  # (P, C, 1, 1)
+    k, scale = _folded_k(kernel_template, pairwise_diff(x, x)[None], theta, x.dtype)
+    K = k * torch.as_tensor(scale, dtype=torch.float64, device=x.device).to(x.dtype)
+    K.diagonal(dim1=-2, dim2=-1).add_(torch.as_tensor(diag, dtype=x.dtype,
+                                                      device=x.device)[:, None])
+    return K
 
 
 def _folded_product(kernel, x, v, jac: bool, block_size: int) -> torch.Tensor:

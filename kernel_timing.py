@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import os
 import re
@@ -50,6 +51,15 @@ def wall_s(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def pivot_row_fn(pw, kernel, x):
+    """One pivot row as the pivoted Cholesky builds it: ``pivot_rows`` (the
+    parameters read once) where the package has it, else
+    ``pairwise_matrix`` per row."""
+    if hasattr(pw, "pivot_rows"):
+        return pw.pivot_rows(kernel, x)
+    return lambda xp: pw.pairwise_matrix(kernel, xp, x)[0]
 
 
 def measure(dev) -> dict:
@@ -93,21 +103,26 @@ def measure_new_families(dev) -> dict:
         out[f"B2b_{fam}_{cs.GRAD_N}_pair_ms"] = cs.time_ms(
             lambda: pw.pairwise_hessian(k, x4, x4, pair=pair), 10)
         ki = cs.new_kernel(fam, (1.0, float(ks.w), *cs.NEW_FAMILY_PARAMS[fam][2:]), f32, dev)
-        out[f"B1_{fam}_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(
-            lambda: pw.pairwise_matrix(ki, piv, xs), 200)
+        row = pivot_row_fn(pw, ki, xs)
+        out[f"B1_{fam}_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(lambda: row(piv), 200)
+        out[f"B1_{fam}_pivot_row_call_us"] = cs.call_us(lambda: row(piv))
         for r in ((1, 8, 9) if fam == "matern52" else (9,)):
             v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
             out[f"B4_{fam}_r{r}_ms"] = cs.time_ms(
                 lambda: pw.kernel_matvec_fused(ki, xs, v, noise, cs.ITER_JITTER), 5)
         out[f"B5_{fam}_r9_ms"] = cs.time_ms(lambda: pw.kernel_jacvec_fused(ki, xs, u), 5)
     kt = cs.tree_kernel("qp", f32, dev, se=(1.0, float(ks.w)))
-    out[f"B1_tree_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(lambda: pw.pairwise_matrix(kt, piv, xs),
-                                                           200)
+    row = pivot_row_fn(pw, kt, xs)
+    out[f"B1_tree_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(lambda: row(piv), 200)
+    out["B1_tree_pivot_row_call_us"] = cs.call_us(lambda: row(piv))
+    kt16 = cs.tree_kernel("qp", f32, dev)
+    out[f"B1_tree_{cs.K_N}_ms"] = cs.time_ms(
+        lambda: pw.pairwise_matrix(kt16, x16, x16, noise=noise, jitter=1e-6), 10)
     for r in (1, 8):
         v = torch.randn(cs.ITER_N, r, generator=gen).to(dev)
         out[f"B4_tree_r{r}_ms"] = cs.time_ms(
             lambda: pw.kernel_matvec_fused(kt, xs, v, noise, cs.ITER_JITTER), 3)
-    for fam in ("matern52", "rq", "tree"):
+    for fam in ("matern32", "matern52", "rq", "tree"):
         x, template, theta = cs.chain_problem(dev, f32, fam)
         P = template.n_params
         params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
@@ -265,8 +280,9 @@ def measure_products(dev) -> dict:
     piv = xs[cs.ITER_N // 3:cs.ITER_N // 3 + 1].contiguous()
     out[f"B1_pivot_column_{cs.ITER_N}_ms"] = cs.time_ms(
         lambda: pw.pairwise_matrix(ks, xs, piv), 200)
-    out[f"B1_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(
-        lambda: pw.pairwise_matrix(ks, piv, xs), 200)
+    row = pivot_row_fn(pw, ks, xs)
+    out[f"B1_pivot_row_{cs.ITER_N}_ms"] = cs.time_ms(lambda: row(piv), 200)
+    out["B1_pivot_row_call_us"] = cs.call_us(lambda: row(piv))
     for key in ("se_fit_iterative_wall_s", "se_fit_iterative_warm_wall_s"):
         out[key] = wall_s(lambda: gpx.fit_iterative(ks, xs, ys, cs.ITER_NOISE, cs.seed(10),
                                                     **cs.ITER_OPTS))
@@ -317,7 +333,7 @@ def profile(dev, out_dir: str) -> dict:
         "B6_pivot_column_x100": times100(lambda: pw.pairwise_matrix_ard(ka, xa, pa)),
         "B6_pivot_row_x100": times100(lambda: pw.pairwise_matrix_ard(ka, pa, xa)),
         "B1_pivot_column_x100": times100(lambda: pw.pairwise_matrix(ks, xs, ps)),
-        "B1_pivot_row_x100": times100(lambda: pw.pairwise_matrix(ks, ps, xs)),
+        "B1_pivot_row_x100": times100(functools.partial(pivot_row_fn(pw, ks, xs), ps)),
     }
     if hasattr(gpx, "Matern52Kernel"):
         k52 = cs.new_kernel("matern52", (1.0, float(ks.w)), torch.float32, dev)

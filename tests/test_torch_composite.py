@@ -121,8 +121,8 @@ def test_jacobian_hessian_and_pairs_match_jax(name):
 
 @pytest.mark.parametrize("name", ["product", "nested", "sum_of_products"])
 def test_matvec_twins_match_pallas(name):
-    """B4's plain versions (strips of the tree's K; ``folded_values`` is
-    the plain K at scale 1) against the JAX fused matvec's tree body at
+    """B4's plain versions (strips of the tree's K; ``folded_values``, the
+    kernel's sum of products) against the JAX fused matvec's tree body at
     n = 300, as tests/test_iterative.py holds the JAX package's own."""
     jk, tk = _pair(name)
     x, _ = _inputs(300, 1, seed=3)
@@ -160,18 +160,21 @@ def test_ard_leaf_raises_type_error():
 
 
 def test_tree_program_encoding_and_leaf_limit():
-    """The postfix program the kernels take: leaves (family, first
-    parameter) in k1-before-k2 order, -1 / -2 for sum / product; up to
-    MAX_TREE_LEAVES leaves."""
+    """The sum of products the kernels take: leaves (family, first
+    parameter) in k1-before-k2 order, then one bit mask per product, a
+    product of sums multiplied out; up to MAX_TREE_LEAVES leaves."""
     tk = kernel_from_spec(TREES["nested"])
     code = list(tpw._tree_program(tpw._tree_structure(tk)))
-    assert code == [5, 0, 0, 1, 2, -2, 0, 0, 5, -1, 0]
+    assert code == [3, 0, 0, 1, 2, 0, 5, 2, 0b011, 0b100]
+    code = list(tpw._tree_program(tpw._tree_structure(kernel_from_spec(TREES["product_of_sum"]))))
+    assert code == [3, 0, 0, 1, 2, 0, 5, 2, 0b101, 0b110]
     leaf = ("matern52", (1.0, 1.0))
     spec = leaf
     for _ in range(tpw.MAX_TREE_LEAVES - 1):
         spec = ("prod", spec, leaf)
     big = kernel_from_spec(spec)
-    assert list(tpw._tree_program(tpw._tree_structure(big)))[0] == 2 * tpw.MAX_TREE_LEAVES - 1
+    code = list(tpw._tree_program(tpw._tree_structure(big)))
+    assert code[0] == tpw.MAX_TREE_LEAVES and code[-2:] == [1, 2 ** tpw.MAX_TREE_LEAVES - 1]
     with pytest.raises(ValueError, match="at most"):
         tpw._tree_program(tpw._tree_structure(kernel_from_spec(("sum", spec, leaf))))
     # the plain version has no leaf limit, as the JAX package has none

@@ -9,7 +9,9 @@ JAX, so it also runs where JAX is absent:
 
 Float32 tolerances: B1/B2/B6 rtol 1e-5 with an atol of 1e-6 of the array's
 largest value (the kernel contracts multiply-adds into FMAs, the plain
-version rounds each operation).  B3: relative Frobenius distance from the
+version rounds each operation; B1 is held to the plain version of its own
+folded arithmetic, ``pairwise_matrix_folded``, whose ex2 and lg2 the card
+approximates).  B3: relative Frobenius distance from the
 plain factor 3e-5 (f32; two float32 factorizations of a tile with
 condition number ~1e4 differ by up to ~1e-5) and 1e-12 (f64), and backward
 error ||L L^T - A|| / ||A|| 1e-6 (f32) and 1e-13 (f64); B3's inverse within
@@ -85,9 +87,9 @@ def test_pairwise_kernels_match_plain(cuda, family, dtype, n, m):
     k = KERNELS[family](dtype, cuda)
     x1, x2 = _x(n, 0, dtype, cuda), _x(m, 1, dtype, cuda)
     before = dict(_build.launch_counts)
-    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_reference(k, x1, x2), dtype)
+    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_folded(k, x1, x2), dtype)
     _close(tpw.pairwise_matrix(k, x1, x1, noise=0.1, jitter=1e-6),
-           tpw.pairwise_matrix_reference(k, x1, x1, noise=0.1, jitter=1e-6), dtype)
+           tpw.pairwise_matrix_folded(k, x1, x1, noise=0.1, jitter=1e-6), dtype)
     _close(tpw.pairwise_jacobian(k, x1, x2), tpw.pairwise_jacobian_reference(k, x1, x2), dtype)
     _close(tpw.pairwise_hessian(k, x1, x2), tpw.pairwise_hessian_reference(k, x1, x2), dtype)
     _close(tpw.pairwise_hessian(k, x1, x2, pair=(1, 0)),
@@ -394,7 +396,7 @@ def test_chain_tables_match_plain(cuda, family, dtype, chains, n):
     params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6  # params: a strided view
     before = dict(_build.launch_counts)
     _close(tpw.pairwise_matrix_chains(k, x, params, diag),
-           tpw.pairwise_matrix_chains_reference(k, x, params, diag), dtype)
+           tpw.pairwise_matrix_chains_folded(k, x, params, diag), dtype)
     _close(tpw.pairwise_jacobian_chains(k, x, params),
            tpw.pairwise_jacobian_chains_reference(k, x, params), dtype)
     for key in ("pairwise_k_chains", "pairwise_jac_chains"):
@@ -439,9 +441,9 @@ def test_new_family_pairwise_kernels_match_plain(cuda, family, dtype, n, m):
     k = NEW_KERNELS[family](dtype, cuda)
     x1, x2 = _x(n, 60, dtype, cuda), _x(m, 61, dtype, cuda)
     before = dict(_build.launch_counts)
-    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_reference(k, x1, x2), dtype)
+    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_folded(k, x1, x2), dtype)
     _close(tpw.pairwise_matrix(k, x2, x2, noise=0.1, jitter=1e-6),
-           tpw.pairwise_matrix_reference(k, x2, x2, noise=0.1, jitter=1e-6), dtype)
+           tpw.pairwise_matrix_folded(k, x2, x2, noise=0.1, jitter=1e-6), dtype)
     _close(tpw.pairwise_jacobian(k, x1, x2), tpw.pairwise_jacobian_reference(k, x1, x2), dtype)
     _close(tpw.pairwise_hessian(k, x1, x2), tpw.pairwise_hessian_reference(k, x1, x2), dtype)
     P = k.n_params
@@ -505,10 +507,10 @@ def test_tree_bodies_match_plain(cuda, tree, dtype):
     k = _tree(tree, dtype, cuda)
     x1, x2 = _x(129, 65, dtype, cuda), _x(257, 66, dtype, cuda)
     before = dict(_build.launch_counts)
-    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_reference(k, x1, x2), dtype)
+    _close(tpw.pairwise_matrix(k, x1, x2), tpw.pairwise_matrix_folded(k, x1, x2), dtype)
     _close(tpw.pairwise_matrix(k, x1, x1, noise=0.1, jitter=1e-6),
-           tpw.pairwise_matrix_reference(k, x1, x1, noise=0.1, jitter=1e-6), dtype)
-    _close(tpw.pairwise_matrix(k, x1[:1], x2), tpw.pairwise_matrix_reference(k, x1[:1], x2),
+           tpw.pairwise_matrix_folded(k, x1, x1, noise=0.1, jitter=1e-6), dtype)
+    _close(tpw.pairwise_matrix(k, x1[:1], x2), tpw.pairwise_matrix_folded(k, x1[:1], x2),
            dtype)
     for n, r in ((777, 1), (777, 9), (300, 300)):
         x = _x(n, 67, dtype, cuda)
@@ -518,6 +520,8 @@ def test_tree_bodies_match_plain(cuda, tree, dtype):
         bound = tpw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
         _within_row_sums(got, tpw.kernel_matvec_fused_reference(k, x, v, 0.1, 1e-6), bound,
                          dtype)
+        _within_row_sums(got, tpw.matvec_folded_reference(k, x, v)
+                         + tpw._diag_term(0.1, 1e-6, x) * v, bound, dtype)
         assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
     torch.cuda.synchronize()
     after = _build.launch_counts
@@ -561,7 +565,7 @@ def test_new_chain_tables_match_plain(cuda, kind, dtype, chains, n):
     params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
     before = dict(_build.launch_counts)
     _close(tpw.pairwise_matrix_chains(k, x, params, diag),
-           tpw.pairwise_matrix_chains_reference(k, x, params, diag), dtype)
+           tpw.pairwise_matrix_chains_folded(k, x, params, diag), dtype)
     _close(tpw.pairwise_jacobian_chains(k, x, params),
            tpw.pairwise_jacobian_chains_reference(k, x, params), dtype)
     torch.cuda.synchronize()
@@ -592,3 +596,74 @@ def test_tree_value_and_grad_chains_on_card(cuda, dtype):
     torch.testing.assert_close(lml.cpu().double(), cpu[0], rtol=rel, atol=0)
     torch.testing.assert_close(grad.cpu().double(), cpu[1], rtol=0,
                                atol=(2e-2 if dtype == torch.float32 else 1e-8) * cpu[1].abs().max())
+
+
+# -- the folded element of B1 and B4 (redesigned together) ---------------------
+
+RQ_A = [0.7, 1.5, 940.0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", [*ALL_KERNELS, *TREES, "rq_a"])
+def test_b1_folded_element_repeats_bit_identical(cuda, kind, dtype):
+    """B1 in every case (ragged, with the diagonal, a pivot row, a chain
+    table) against ``pairwise_matrix_folded``, repeated bit for bit; RQ at
+    a = 0.7, 1.5 and 940."""
+    if kind == "rq_a":
+        ks = [gpx.RationalQuadraticKernel(0.9, 1.1, a, dtype=dtype, device=cuda) for a in RQ_A]
+    elif kind in TREES:
+        ks = [_tree(kind, dtype, cuda)]
+    else:
+        ks = [ALL_KERNELS[kind](dtype, cuda)]
+    x1, x2 = _x(129, 72, dtype, cuda), _x(257, 73, dtype, cuda)
+    for k in ks:
+        for a, b, diag in ((x1, x2, {}), (x1, x1, dict(noise=0.1, jitter=1e-6)),
+                           (x1[:1], x2, {})):
+            got = tpw.pairwise_matrix(k, a, b, **diag)
+            _close(got, tpw.pairwise_matrix_folded(k, a, b, **diag), dtype)
+            assert torch.equal(got, tpw.pairwise_matrix(k, a, b, **diag))
+        P = k.n_params
+        g = torch.Generator().manual_seed(74)
+        theta = (0.5 + torch.rand(3, P + 1, generator=g, dtype=torch.float64)).to(cuda, dtype)
+        got = tpw.pairwise_matrix_chains(k, x1, theta[:, :P], theta[:, P] ** 2)
+        _close(got, tpw.pairwise_matrix_chains_folded(k, x1, theta[:, :P], theta[:, P] ** 2),
+               dtype)
+        assert torch.equal(got, tpw.pairwise_matrix_chains(k, x1, theta[:, :P], theta[:, P] ** 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", [*ALL_KERNELS, *TREES])
+def test_pivot_rows_bit_identical_to_the_column(cuda, kind, dtype):
+    """``pivot_rows`` (the parameters read once, one B1 launch a row) gives
+    the pivoted Cholesky's row K[piv, :] equal bit for bit to the column
+    K[:, piv] and to ``pairwise_matrix``'s row."""
+    k = _tree(kind, dtype, cuda) if kind in TREES else ALL_KERNELS[kind](dtype, cuda)
+    x = _x(4099, 75, dtype, cuda)
+    row = tpw.pivot_rows(k, x)
+    before = _build.launch_counts["pairwise_k" + ("_tree" if kind in TREES else (
+        "" if kind in KERNELS else "_" + kind))]
+    for i in (0, 1234, 4098):
+        got = row(x[i:i + 1]).clone()
+        assert torch.equal(got, tpw.pairwise_matrix(k, x, x[i:i + 1])[:, 0])
+        assert torch.equal(got, tpw.pairwise_matrix(k, x[i:i + 1], x)[0])
+    after = _build.launch_counts["pairwise_k" + ("_tree" if kind in TREES else (
+        "" if kind in KERNELS else "_" + kind))]
+    assert after - before == 9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("a", RQ_A)
+@pytest.mark.parametrize("n,r", [(129, 1), (777, 9), (300, 300)])
+def test_b4_rq_folded_log_matches_plain(cuda, a, n, r, dtype):
+    """B4's RQ case (log1p_base: the series below B = 17/16, lg2.approx
+    above) against its folded plain version and the plain product, with a
+    bit-identical repeat."""
+    k = gpx.RationalQuadraticKernel(0.9, 1.1, a, dtype=dtype, device=cuda)
+    x = _x(n, 76, dtype, cuda)
+    g = torch.Generator().manual_seed(77 + r)
+    v = torch.randn(n, r, generator=g, dtype=torch.float64).to(device=cuda, dtype=dtype)
+    got = tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6)
+    bound = tpw.kernel_matvec_fused_reference(k, x, v.abs(), 0.1, 1e-6)
+    _within_row_sums(got, tpw.matvec_folded_reference(k, x, v) + tpw._diag_term(0.1, 1e-6, x) * v,
+                     bound, dtype)
+    assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))

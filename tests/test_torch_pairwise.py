@@ -162,6 +162,7 @@ def test_build_sources_and_hash():
     names = [p.name for p in _build.sources()]
     assert names == ["ard_matvec_f32.cu", "ard_matvec_f64.cu", "ard_pairwise.cu", "chol_tile.cu",
                      "matvec_ext_f32.cu", "matvec_ext_f64.cu", "matvec_f32.cu", "matvec_f64.cu",
+                     "matvec_tree_f32.cu", "matvec_tree_f64.cu",
                      "pairwise.cu", "pairwise_ext_f32.cu", "pairwise_ext_f64.cu",
                      "ard_matvec.cuh", "closed_forms.cuh", "matvec.cuh", "pairwise.cuh",
                      "product_common.cuh", "splits.cuh"]
