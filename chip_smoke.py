@@ -49,8 +49,16 @@
    quasi-periodic tree SE x periodic through ``fit_iterative`` at N=65536;
    config #2's MLE with RQ and a short ChEES run of config #3 with Matérn
    5/2 through the CLI; one batched value and gradient of 64 chains for the
-   tree.  Requires every kernel of a path to have launched in that path's
-   run.
+   tree.  Then slice 3 and config #4: ``fit_large`` through the CLI at
+   N=65536 (B1's K and B3 under the blocked factor, K and the factor 34.5 GB);
+   bench.py's Toeplitz fits at N=65536 and 2^20 and the Toeplitz gradient
+   (B1's grid column, B2a's Jacobian columns); the Whittle posteriors'
+   value and gradient at N=2^20 (SE for 1 and 16 chains, the quasi-periodic
+   spectrum) and on a 1024^2 torus; ChEES on the Whittle posterior at 2^20
+   with benchmarks/demo_bayes1m.py's settings and through the CLI's
+   grid1m_bayes_whittle; bench.py's SKI fit at N=65536 (twice) and its N-D
+   SKI fit with one round of ``ski_kron_refine``.  Requires every kernel of
+   a path to have launched in that path's run.
 5. Checks the results against independent plain float64 computations on the
    card (pairwise twins + torch.linalg): true residuals of the iterative
    solves, the predictive mean against the generating function, and at
@@ -63,7 +71,14 @@
    Hessians with the SE path's limits, their matrix-free solves' true
    residuals, RQ's MLE optimum, the Matérn ChEES run's R-hat and
    acceptance, and the tree's batched value and gradient against the plain
-   float64 version on the CPU.
+   float64 version on the CPU; config #4's true residual (B4 in float64, no
+   float64 K) and its lml against ``fit_iterative`` in standard errors; the
+   Toeplitz fits' true residuals and lml against the same path in float64;
+   the Whittle values and gradients against float64; the N=2^20 posterior
+   means against the committed reference draws
+   (benchmarks/bayes1m_r5_accept.npz) and a float64 quadrature of the same
+   posterior on the card; the SKI fit's repeat bit for bit and the refined
+   residual in float64.
 6. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check makes the script exit non-zero without the final line.
@@ -73,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -348,6 +364,13 @@ KERNEL_ROWS = [
     *((f"B2a pairwise dK/dtheta over a chain table, {fam}", f"pairwise_jac_chains_{fam}",
        f"pairwise_jac_chains_{fam}", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
        "gaussian_processes_tpu/ops/pairwise.py:270") for fam in ("matern52", "rq")),
+    # slice 3: the grids' first columns (toeplitz_column, jacobian_columns)
+    ("B1 pairwise K, grid column (n x 1)", "pairwise_k", "pairwise_k_grid_column",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88",
+     ("toeplitz",)),
+    ("B2a pairwise dK/dtheta, grid columns (P x n x 1)", "pairwise_jac",
+     "pairwise_jac_grid_column", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:270", ("toeplitz",)),
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD
@@ -371,6 +394,15 @@ PATH_KERNELS = {
     # leaves' B1 and B2a chain launches
     "chains-tree": ("pairwise_k_chains_tree", "pairwise_k_chains", "pairwise_jac_chains",
                     "chol_tile"),
+    # slice 3 and config #4: B1 builds K at N=65536 and the grids' (n, 1)
+    # columns and 1-D SKI's pivot rows, B6 the N-D SKI's pivot rows; the
+    # Whittle densities (analytic spectra and FFTs) launch no hand kernel
+    "fit-large": ("pairwise_k", "chol_tile"),
+    "toeplitz": ("pairwise_k", "pairwise_jac"),
+    "whittle": (),
+    "bayes-grid": (),
+    "ski": ("pairwise_k",),
+    "ski-refine": ("pairwise_ard",),
 }
 
 
@@ -2056,6 +2088,807 @@ def check_main_path(check, out, noise, jitter):
               float((hess.double() - h64).norm() / h64.norm()), HESS_REL[dname])
 
 
+# ---------------------------------------------------------------------------
+# Slice 3 (structured grids) and config #4's fit_large on one card
+# ---------------------------------------------------------------------------
+
+# config #4: the exact fit at N=65536 (jitter 1e-4).  Its true residual
+# ||(K + s^2 I) alpha - y|| / ||y||, with B4 in float64 (no float64 K), is
+# gated: an H100 measured 1.27e-3 (A's condition ~ 2.4e6 in float32 with a
+# solution of norm 2542 against ||y|| ~ 182), so 1e-2 leaves a factor 8 for
+# the rounding and rejects a solve that misses a tile.  The normwise
+# backward error ||r|| / (||A||_2 ||alpha|| + ||y||) (||A||_2 by power
+# iteration with B4) is printed beside it, not gated: measured 3.8e-9, it
+# sits far below sqrt(n) u = 1.5e-5 because alpha lies in A's small
+# eigenvalues, so ||A||_2 ||alpha|| ~ 6e7 against ||A alpha|| = ||y||
+FIT_LARGE_RESIDUAL = 1e-2
+FIT_LARGE_POWER_ITERS = 30
+# bench.py's toeplitz workload: linspace x on [-pi, pi], y = sin(50 x) +
+# 0.1 eps, SE with h = 1 and w = max(100 * 2 pi / N, 1e-4), noise 0.1,
+# jitter 1e-4, 8 probes, tol 1e-6; (N, iterations)
+TOEPLITZ_RUNS = ((65536, 150), (1 << 20, 200))
+# the float32 lml against the float64 run of the same path on the card with
+# the same draws on the float32 run's own grid: the SLQ quadrature and
+# y^T alpha in float32 at |lml| ~ 1e5..1e6 (an H100 measured 9e-7 at 65536
+# and 1.1e-5 at 2^20).  The true residual takes ITER_RESIDUAL, the float64
+# operator being the float32 run's own (its grid cast up): a float64 grid's
+# spacing differs from the float32 grid's by up to 2% at 2^20
+TOEPLITZ_LML_REL = 1e-4
+# the stochastic gradient at N=65536, float32 against float64 with the same
+# draws: the limit of the exact path's float32 gradient (GRAD_REL)
+TOEPLITZ_GRAD_REL = 2e-2
+# bench.py's whittle workload (SE, h = 1, w = 0.006 at N = 2^20, prior sd
+# 1, jitter 1e-6; 16 chains jittered by 0.01 around the prior mean), the
+# quasi-periodic SE x periodic spectrum for one chain, and the 2-D torus at
+# 1024^2 (ARD-SE, w = (0.01, 0.01), y = sin(2 pi 20 g1) cos(2 pi 13 g2) + 0.1 eps)
+WHITTLE_N, WHITTLE_2D, WHITTLE_CHAINS = 1 << 20, 1024, 16
+WHITTLE_QP = ((1.0, 2.0), (1.0, 1.0, 0.5))
+# float32 against float64 on the card (the float32 problem cast up), per
+# chain: the centered value's absolute error in nats (a sum of 2^19 per-bin
+# float32 differences; an H100 measured 0.14) and the gradient's relative
+# error in norm (measured 6e-5)
+WHITTLE_VALUE_NATS, WHITTLE_GRAD_REL = 0.5, 1e-3
+# bayes-grid (a): benchmarks/demo_bayes1m.py's settings, against the
+# committed reference draws (13,000 x 16 ChEES draws of u = log(h, w, s))
+BAYES_REF = "benchmarks/bayes1m_r5_accept.npz"
+BAYES_PRIOR_A, BAYES_PRIOR_B = (0.7, 0.04, 0.1), (1.0, 0.006, 0.1)
+BAYES_WARMUP, BAYES_SAMPLES, BAYES_RHAT, BAYES_SE = 400, 400, 1.05, 4.0
+# the float64 Whittle posterior on the card by a product grid over u, this
+# many points per axis within this many of (a)'s posterior standard
+# deviations of (a)'s mean; the mass left on the grid's faces is printed
+BAYES_QUAD_POINTS, BAYES_QUAD_HALF, BAYES_QUAD_EDGE = 17, 6.0, 1e-4
+# The reference's noise mean 0.100147 lies ~113 of its Monte-Carlo standard
+# errors (one posterior sd) above the float64 quadrature of the same
+# posterior on an H100, which the port's float32 run meets: s is held to
+# the quadrature, h and w to the reference as well.
+# (b): the config's grid is built from x_lo = -3.14159265, whose float32
+# points put dx = x[1] - x[0] at 6.1989e-6 against 5.9605e-6 for (a)'s
+# (the true spacing is 5.9921e-6).  The SE spectrum depends on w only as
+# w / dx, so the reference's draws carry over to (b)'s likelihood with w
+# scaled by the ratio of the two dx, then reweighted by the prior ratio
+BAYES_RHAT_B = 1.05
+# bench.py's ski workload: N = 65536 sorted uniform x (seed 3), m = 16384,
+# 300 iterations, pivoted-Cholesky rank 2048, tol 1e-6, run twice
+SKI_N, SKI_M, SKI_ITERS, SKI_RANK = 65536, 16384, 300, 2048
+# the scatter W^T V on clustered inputs (3/4 of SKI_N points within one grid
+# cell, r = 9 columns, as the fit's [y, probes]): two calls bit-identical,
+# and against float64 within sqrt(taps on the busiest grid point) u ~ 1.3e-5
+# (a sequential float32 sum of ~5e4 terms) with a factor 8
+SKI_CLUSTER_R, SKI_CLUSTER_REL = 9, 1e-4
+# bench.py's ski_refine workload: n = 16384 in [-1, 1]^2 (seed 7), 64^2 grid,
+# ARD w = (0.15, 0.15), rank 256, 150 iterations, one refinement round.
+# The limit is set from the card: the float32 fit's residual 5.2e-5 went to
+# 1.6e-8 in one round on an H100 (the float32 correction solve to the
+# adaptive tolerance 1e-7 bounds what one round can reach, ~rel * 1e-4)
+SKI_REF_N, SKI_REF_M1, SKI_REF_RANK, SKI_REF_ITERS = 16384, 64, 256, 150
+SKI_REF_RESIDUAL = 1e-7
+
+
+class Float64Draws:
+    """The matrix-free path's draws from a seeded CPU generator, taken in
+    float64 and cast, so that a float32 and a float64 run see the same
+    numbers (to the cast)."""
+
+    def __init__(self, seed_):
+        import torch
+
+        self.generator = torch.Generator().manual_seed(seed_)
+
+    def rademacher(self, shape, dtype, device):
+        import torch
+
+        bits = torch.randint(0, 2, shape, generator=self.generator)
+        return (2 * bits - 1).to(dtype=dtype, device=device)
+
+    def normal(self, shape, dtype, device):
+        import torch
+
+        return torch.randn(shape, generator=self.generator, dtype=torch.float64).to(
+            dtype=dtype, device=device)
+
+
+def synced_wall(fn):
+    """(result, seconds) of ``fn()`` on the host clock, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def peak_gb(fn):
+    """(result, peak device memory in GB) of ``fn()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def profile_top(fn, top: int = 8) -> list:
+    """Device time of one call of ``fn()`` by kernel name, from
+    ``torch.profiler``'s CUDA kernel events: [(name, ms, launches)], largest
+    first, with the total first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms, count = rows.get(ev.name, (0.0, 0))
+            rows[ev.name] = (ms + ev.device_time / 1e3, count + 1)
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    total = sum(ms for ms, _ in rows.values())
+    return [("total", total, sum(c for _, c in rows.values()))] + [
+        (name[:90], ms, count) for name, (ms, count) in ranked[:top]]
+
+
+def print_profile(label, rows):
+    print(f"  profile, {label}: {rows[0][1]:.3f} ms of device time in {rows[0][2]} kernels",
+          flush=True)
+    for name, ms, count in rows[1:]:
+        print(f"    {ms:9.3f} ms {count:6d}x {name}", flush=True)
+
+
+def run_fit_large_path(dev) -> dict:
+    """Config #4 through the CLI at N=65536 (fit_large on one card), then
+    the same fit through the library for its alpha."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch import cli
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    cfg = CONFIGS["config4_large_n"]
+    out = {"cli": cli.run_config(cfg, device=dev)}
+    x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(cfg.data, "float32"))
+    k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
+    post = gpx.fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
+    out.update(x=x, y=y, k=k, alpha=post.alpha, lml=float(post.log_marginal),
+               noise=cfg.fit.noise, jitter=cfg.fit.jitter)
+    return out
+
+
+def check_fit_large_path(check, out, dev) -> dict:
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.models import iterative_gp
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("fit-large (config #4, float32, one card):", flush=True)
+    s = out["cli"]
+    x, y, k, alpha = out["x"], out["y"], out["k"], out["alpha"]
+    noise, jitter = out["noise"], out["jitter"]
+    n = x.shape[0]
+    print(f"  N={n}: cli fit_wall_s {s['fit_wall_s']:.4f} s (best of 2 after a warm-up), "
+          f"peak memory {s['peak_memory_gb']:.2f} GB, lml {s['log_marginal']:.4f}, "
+          f"rmse {s['pred_rmse_vs_truth']:.5f}, {s['fraction_of_peak']:.3f} of the float32 peak",
+          flush=True)
+    check(f"fit-large N={n} rmse vs sin(2x)", s["pred_rmse_vs_truth"], FIT_RMSE)
+    check(f"fit-large N={n} peak memory (GB, of 80)", s["peak_memory_gb"], 80.0)
+    # ||A||_2 by power iteration (B4, float32); the residual by B4 in float64
+    v = torch.ones(n, device=dev) / math.sqrt(n)
+    for _ in range(FIT_LARGE_POWER_ITERS):
+        v = pw.kernel_matvec_fused(k, x, v, noise, jitter)
+        lam = float(torch.linalg.norm(v))
+        v = v / lam
+    k64 = k.with_params(k.params.double())
+    a64, y64 = alpha.double(), y.double()
+    r = pw.kernel_matvec_fused(k64, x.double(), a64, noise, jitter) - y64
+    rn, yn, an = (float(torch.linalg.norm(t)) for t in (r, y64, a64))
+    omega = rn / (lam * an + yn)
+    print(f"  true residual (B4, float64): ||r|| / ||y|| = {rn / yn:.3e}; ||A||_2 ~ {lam:.1f}, "
+          f"||alpha|| = {an:.4e}, backward error {omega:.3e}", flush=True)
+    check(f"fit-large N={n} true residual ||r|| / ||y|| (B4, float64)", rn / yn,
+          FIT_LARGE_RESIDUAL)
+    finite = bool(np.isfinite(s["log_marginal"]))
+    check(f"fit-large N={n} lml finite (0 = yes)", 0.0 if finite else 1.0, 0.0)
+    # the dense/iterative crossover on config #4's data: the exact fit and
+    # fit_iterative's estimate (SLQ standard error from its probes) for the
+    # kernel of config #4 (w = 1) and for the matrix-free workload's (w =
+    # 100 * 2 pi / N).  At w = 1 the damped Woodbury shift (1.5e3 eps
+    # lam_max ~ 4.6 against s^2 + jitter = 0.0101) leaves the preconditioned
+    # SLQ an error of ~2e5 nats, so the gate is at the workload's kernel
+    summary = {"fit_wall_s": s["fit_wall_s"], "peak_memory_gb": s["peak_memory_gb"],
+               "lml": s["log_marginal"], "backward_error": omega, "relative_residual": rn / yn}
+    for label, kern, lml_dense in (
+            ("w=1", k, out["lml"]),
+            ("w=100*2pi/N", k.with_params(torch.tensor([1.0, 100 * 2 * math.pi / n], device=dev)),
+             None)):
+        if lml_dense is None:
+            (lml_dense, dense_s) = synced_wall(
+                lambda: float(gpx.fit(kern, x, y, noise, jitter).log_marginal))
+        else:
+            dense_s = s["fit_wall_s"]
+        est, wall = synced_wall(lambda: iterative_gp.log_marginal_estimate_iterative(
+            kern, x, y, noise, Float64Draws(40), **ITER_OPTS))
+        terms = est.logdet_terms.double().cpu().numpy()
+        se = 0.5 * terms.std(ddof=1) / math.sqrt(terms.size)
+        lml_it = float(est.lml)
+        print(f"  {label}: dense fit {dense_s:.3f} s, lml {lml_dense:.4f}; fit_iterative's "
+              f"value+grad {wall:.3f} s, lml {lml_it:.4f} +- {se:.4f} (SLQ standard error): "
+              f"{abs(lml_dense - lml_it) / se:.2f} standard errors apart", flush=True)
+        summary[label] = {"dense_lml": lml_dense, "dense_s": dense_s, "iterative_lml": lml_it,
+                          "iterative_se": se, "iterative_s": wall}
+    check(f"fit-large N={n} dense lml vs fit_iterative, w = 100*2pi/N (standard errors)",
+          abs(summary["w=100*2pi/N"]["dense_lml"] - summary["w=100*2pi/N"]["iterative_lml"])
+          / summary["w=100*2pi/N"]["iterative_se"], ITER_SE)
+    return summary
+
+
+def toeplitz_problem(n, dev, dtype_name="float32"):
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    rng = np.random.default_rng(0)
+    x = np.linspace(-np.pi, np.pi, n)
+    y = np.sin(50 * x) + 0.1 * rng.standard_normal(n)
+    dtype = getattr(torch, dtype_name)
+    k = gpx.GaussianKernel(1.0, max(100.0 * 2 * np.pi / n, 1e-4), dtype=dtype, device=dev)
+    return (torch.as_tensor(x, dtype=dtype, device=dev),
+            torch.as_tensor(y, dtype=dtype, device=dev), k)
+
+
+TOEPLITZ_OPTS = dict(num_probes=8, tol=1e-6, jitter=1e-4, structure="toeplitz")
+
+
+def run_toeplitz_path(dev) -> dict:
+    """bench.py's toeplitz workload: ``fit_iterative(structure="toeplitz")``
+    at N=65536 and 2^20, twice each (the second warm), and the stochastic
+    gradient at N=65536 (the Jacobian columns from B2a at (P, n, 1))."""
+    import gaussian_processes_tpu_torch as gpx
+
+    out = {}
+    for n, iters in TOEPLITZ_RUNS:
+        x, y, k = toeplitz_problem(n, dev)
+        for wall in ("first_s", "wall_s"):
+            post, out[f"{n}_{wall}"] = synced_wall(lambda: gpx.fit_iterative(
+                k, x, y, 0.1, Float64Draws(50), num_iters=iters, **TOEPLITZ_OPTS))
+        out[n] = (x, y, k, post)
+    n, iters = TOEPLITZ_RUNS[0]
+    x, y, k, _ = out[n]
+    out["grad"], out["grad_s"] = synced_wall(lambda: gpx.log_marginal_value_and_grad_iterative(
+        k, x, y, 0.1, Float64Draws(51), num_iters=iters, **TOEPLITZ_OPTS))
+    return out
+
+
+def check_toeplitz_path(check, out, dev, rows) -> dict:
+    """The Toeplitz fits and gradient against the same path in float64 on
+    the card; B1's grid column and B2a's Jacobian columns at N=2^20 against
+    their plain versions, timed, into ``rows`` (the kernels' line)."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.ops import toeplitz
+
+    print("toeplitz (float32) vs float64 on the card:", flush=True)
+    summary = {}
+    for n, iters in TOEPLITZ_RUNS:
+        x, y, k, post = out[n]
+        # the float32 run's own grid, data and parameters in float64: its
+        # operator, without the float32 rounding of the column and the FFTs
+        x64, y64, k64 = x.double(), y.double(), k.with_params(k.params.double())
+        col64 = toeplitz.toeplitz_column(k64, x64)
+        shift = 0.1 ** 2 + 1e-4
+        a64 = post.alpha.double()
+        r = toeplitz.toeplitz_matvec(col64, a64, shift) - y64
+        res = float(torch.linalg.norm(r) / torch.linalg.norm(y64))
+        # ||A||_2 <= max |spectrum of the circulant embedding| + shift
+        norm_a = float(torch.max(torch.abs(toeplitz._embed_fft(col64)))) + shift
+        omega = float(torch.linalg.norm(r)) / (norm_a * float(torch.linalg.norm(a64))
+                                               + float(torch.linalg.norm(y64)))
+        p64 = gpx.fit_iterative(k64, x64, y64, 0.1, Float64Draws(50), num_iters=iters,
+                                **TOEPLITZ_OPTS)
+        lml, lml64 = float(post.log_marginal), float(p64.log_marginal)
+        col_ms = time_ms(lambda: toeplitz.toeplitz_column(k, x), 50)
+        print(f"  N={n} ({iters} iterations, w = {float(k.w):.3e}): fit {out[f'{n}_wall_s']:.4f} s "
+              f"(first {out[f'{n}_first_s']:.4f} s), recurrence residual "
+              f"{float(post.solve_residual):.3e}, true residual (f64) {res:.3e}, lml {lml:.4f} "
+              f"(f64 {lml64:.4f}); backward error {omega:.3e}; B1 column (n x 1) "
+              f"{col_ms * 1e3:.2f} us", flush=True)
+        check(f"toeplitz N={n} true relative residual (f64)", res, ITER_RESIDUAL)
+        check(f"toeplitz N={n} lml rel vs the float64 path", abs(lml - lml64) / abs(lml64),
+              TOEPLITZ_LML_REL)
+        summary[n] = {"wall_s": out[f"{n}_wall_s"], "first_s": out[f"{n}_first_s"],
+                      "residual": res, "backward_error": omega, "lml": lml, "lml64": lml64,
+                      "column_ms": col_ms}
+    n, iters = TOEPLITZ_RUNS[0]
+    x, y, k, _ = out[n]
+    lml, grad = out["grad"]
+    lml64, grad64 = gpx.log_marginal_value_and_grad_iterative(
+        k.with_params(k.params.double()), x.double(), y.double(), 0.1, Float64Draws(51),
+        num_iters=iters, **TOEPLITZ_OPTS)
+    gerr = float((grad.double() - grad64).norm() / grad64.norm())
+    print(f"  N={n} value+grad {out['grad_s']:.4f} s: lml {float(lml):.4f} (f64 "
+          f"{float(lml64):.4f}), grad {grad.tolist()} (f64 {grad64.tolist()})", flush=True)
+    check(f"toeplitz N={n} value+grad lml rel vs the float64 path",
+          abs(float(lml) - float(lml64)) / abs(float(lml64)), TOEPLITZ_LML_REL)
+    check(f"toeplitz N={n} gradient rel (norm) vs the float64 path", gerr, TOEPLITZ_GRAD_REL)
+    summary["grad"] = {"wall_s": out["grad_s"], "grad_rel": gerr}
+    # B1's (n, 1) grid column and B2a's (P, n, 1) Jacobian columns at 2^20
+    n, iters = TOEPLITZ_RUNS[-1]
+    x, y, k, _ = out[n]
+    x0 = x[:1]
+    for key, label, kern_fn, plain_fn, ops, nbytes in (
+            ("pairwise_k_grid_column", f"B1 grid column {n}x1",
+             lambda: pw.pairwise_matrix(k, x, x0), lambda: pw.pairwise_matrix_folded(k, x, x0),
+             SE_K_OPS * n, 4 * (1 + 2 * n)),
+            ("pairwise_jac_grid_column", f"B2a Jacobian columns 2x{n}x1",
+             lambda: pw.pairwise_jacobian(k, x, x0),
+             lambda: pw.pairwise_jacobian_reference(k, x, x0),
+             SE_JAC_OPS * n, 4 * (1 + n + 2 * n))):
+        got, want = kern_fn(), plain_fn()
+        err, ratio = plane_violation(got, want, "float32")
+        rows[key] = {"max_abs_err": err, "ms": time_ms(kern_fn, 50),
+                     "plain_ms": time_ms(plain_fn, 10), **bound(ops, nbytes), "library_ms": None}
+        print(f"  {label}: kernel {rows[key]['ms'] * 1e3:.2f} us, plain "
+              f"{rows[key]['plain_ms'] * 1e3:.2f} us, bound {rows[key]['bound_ms'] * 1e3:.2f} us "
+              f"({rows[key]['bound_by']}), max abs err {err:.3e}", flush=True)
+        check(f"{label} vs plain (error / allowance)", ratio, 1.0)
+    prof = profile_top(lambda: gpx.fit_iterative(k, x, y, 0.1, Float64Draws(50),
+                                                 num_iters=iters, **TOEPLITZ_OPTS))
+    print_profile(f"one Toeplitz fit at N={n}", prof)
+    summary["profile"] = prof
+    return summary
+
+
+def whittle_problem(dev, dtype_name="float32"):
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    n = WHITTLE_N
+    rng = np.random.default_rng(1)
+    x = np.arange(n) * (2 * np.pi / n) - np.pi
+    y = np.sin(50 * x) + 0.1 * rng.standard_normal(n)
+    dtype = getattr(torch, dtype_name)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    k = gpx.GaussianKernel(1.0, 0.006, dtype=dtype, device=dev)
+    qp = gpx.ProductKernel(gpx.GaussianKernel(*WHITTLE_QP[0], dtype=dtype, device=dev),
+                           gpx.PeriodicKernel(*WHITTLE_QP[1], dtype=dtype, device=dev))
+    m = WHITTLE_2D
+    g = np.arange(m) / m
+    G1, G2 = np.meshgrid(g, g, indexing="ij")
+    y2 = (np.sin(2 * np.pi * 20 * G1) * np.cos(2 * np.pi * 13 * G2)
+          + 0.1 * rng.standard_normal((m, m))).reshape(-1)
+    k2 = gpx.ARDGaussianKernel(1.0, torch.tensor([0.01, 0.01]), dtype=dtype, device=dev)
+    return t(x), t(y), k, qp, t(g), t(y2), k2
+
+
+def whittle_densities(dev, dtype_name):
+    """The densities on the float32 problem; for "float64" the same grids,
+    data and parameters cast up (the float32 grid's own spacing)."""
+    import numpy as np
+    import torch
+    from gaussian_processes_tpu_torch.inference import (
+        make_log_posterior_whittle,
+        make_log_posterior_whittle_kron,
+    )
+    from gaussian_processes_tpu_torch.ops.kronecker import KronOperator
+
+    dtype = getattr(torch, dtype_name)
+    x, y, k, qp, g, y2, k2 = (a.to(dtype) for a in whittle_problem(dev, "float32"))
+    def u32(*theta):  # positions rounded to float32 first, as the float32 run has them
+        return torch.log(torch.tensor(theta, device=dev)).to(dtype)
+
+    u0, uq, u2 = u32(1.0, 0.006, 0.1), u32(*WHITTLE_QP[0], *WHITTLE_QP[1], 0.1), u32(
+        1.0, 0.01, 0.01, 0.1)
+    eps = np.random.default_rng(2).standard_normal((WHITTLE_CHAINS, 4))
+
+    def chains(u):
+        return (u[None].float() + 0.01 * torch.as_tensor(eps[:, :u.shape[0]], dtype=torch.float32,
+                                                          device=dev)).to(dtype)
+
+    lp = make_log_posterior_whittle(k, x, y, prior_mean=u0, prior_std=1.0, jitter=1e-6)
+    lq = make_log_posterior_whittle(qp, x, y, prior_mean=uq, prior_std=1.0, jitter=1e-6)
+    l2 = make_log_posterior_whittle_kron(k2, KronOperator(axes=(g, g)), y2, prior_mean=u2,
+                                         prior_std=1.0, jitter=1e-6)
+    return {"se_1": (lp, u0), f"se_{WHITTLE_CHAINS}": (lp, chains(u0)), "qp_1": (lq, uq),
+            "2d_1": (l2, u2), f"2d_{WHITTLE_CHAINS}": (l2, chains(u2))}
+
+
+def run_whittle_path(dev) -> dict:
+    """The Whittle posteriors' value+grad at N=2^20 (1 and 16 chains, and
+    the quasi-periodic spectrum for one chain) and on the 1024^2 torus."""
+    out = {}
+    for name, (lp, u) in whittle_densities(dev, "float32").items():
+        out[name], out[f"{name}_peak_gb"] = peak_gb(lambda: lp.value_and_grad(u))
+        out[f"{name}_ms"] = time_ms(lambda: lp.value_and_grad(u), 3 if "qp" in name else 20)
+    return out
+
+
+def check_whittle_path(check, out, dev) -> dict:
+    print("whittle (float32) vs float64 on the card:", flush=True)
+    summary = {}
+    dens64 = whittle_densities(dev, "float64")
+    for name, (lp64, u64) in dens64.items():
+        v32, g32 = out[name]
+        v64, g64 = lp64.value_and_grad(u64)
+        verr = float((v32.double() - v64).abs().max())
+        gerr = float(((g32.double() - g64).norm(dim=-1) / g64.norm(dim=-1)).max())
+        print(f"  {name}: value+grad {out[f'{name}_ms']:.3f} ms per batched evaluation, peak "
+              f"{out[f'{name}_peak_gb']:.2f} GB; value {float(v32.reshape(-1)[0]):.4f} "
+              f"(f64 {float(v64.reshape(-1)[0]):.4f})", flush=True)
+        check(f"whittle {name} value abs error vs f64 (nats)", verr, WHITTLE_VALUE_NATS)
+        check(f"whittle {name} grad rel error vs f64 (norm, worst chain)", gerr, WHITTLE_GRAD_REL)
+        check(f"whittle {name} peak memory (GB, of 80)", out[f"{name}_peak_gb"], 80.0)
+        summary[name] = {"ms": out[f"{name}_ms"], "peak_gb": out[f"{name}_peak_gb"],
+                         "value_err": verr, "grad_rel": gerr}
+    lp, u = whittle_densities(dev, "float32")[f"se_{WHITTLE_CHAINS}"]
+    rows = profile_top(lambda: lp.value_and_grad(u))
+    print_profile(f"one {WHITTLE_CHAINS}-chain Whittle value+grad at N={WHITTLE_N}", rows)
+    summary["profile"] = rows
+    return summary
+
+
+def bayes_problem(dev):
+    """benchmarks/demo_bayes1m.py's data: the endpoint-exclusive grid of
+    2^20 points on [-pi, pi), y = sin(50 x) + 0.1 eps (seed 0), float32."""
+    import numpy as np
+    import torch
+
+    n = 1 << 20
+    rng = np.random.default_rng(0)
+    x = (np.arange(n) * (2 * np.pi / n) - np.pi).astype(np.float32)
+    y = (np.sin(50 * x) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+
+
+def run_bayes_grid_path(dev, warmup=BAYES_WARMUP, samples=BAYES_SAMPLES, cli_draws=None) -> dict:
+    """(a) ChEES on the Whittle posterior at demo_bayes1m.py's settings
+    through the library; (b) the CLI's grid1m_bayes_whittle."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch import cli
+    from gaussian_processes_tpu_torch.inference import (
+        init_positions,
+        make_log_posterior_whittle,
+        sample_chees,
+    )
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    x, y = bayes_problem(dev)
+    k0 = gpx.GaussianKernel(*BAYES_PRIOR_A[:2], dtype=torch.float32, device=dev)
+    u0 = torch.log(torch.tensor(BAYES_PRIOR_A, device=dev))
+    lp = make_log_posterior_whittle(k0, x, y, prior_mean=u0, prior_std=1.0, jitter=1e-6)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = init_positions(k0, BAYES_PRIOR_A[2], gen, n_chains=16, spread=0.01)
+    res, wall = synced_wall(lambda: sample_chees(
+        lp, init, gen, num_warmup=warmup, num_samples=samples, init_step_size=0.005,
+        init_traj_length=0.1, max_leapfrog=128))
+    cfg = CONFIGS["grid1m_bayes_whittle"]
+    if cli_draws is not None:
+        cfg = dataclasses.replace(cfg, nuts=dataclasses.replace(
+            cfg.nuts, num_warmup=cli_draws[0], num_samples=cli_draws[1]))
+    xb, yb, _ = make_data(cfg.data, "float32")
+    return {"a": (res, wall, warmup, samples), "b": cli.run_config(cfg, device=dev),
+            "b_draws": (cfg.nuts.num_warmup, cfg.nuts.num_samples), "data": (x, y),
+            "b_data": (torch.as_tensor(xb, device=dev), torch.as_tensor(yb, device=dev))}
+
+
+def reference_draws():
+    """The committed reference: positions (13000, 16, 3) in u-space."""
+    import numpy as np
+    from pathlib import Path
+
+    return np.load(Path(__file__).resolve().parent / BAYES_REF)["positions"].astype(np.float64)
+
+
+def mean_and_se(theta):
+    """Posterior mean of (S, C, D) draws and its Monte-Carlo standard error
+    sd / sqrt(ESS)."""
+    import numpy as np
+    from gaussian_processes_tpu_torch.inference.diagnostics import ess
+
+    flat = theta.reshape(-1, theta.shape[-1])
+    return flat.mean(0), flat.std(0) / np.sqrt(ess(theta))
+
+
+def whittle_lml_nodes64(x, y, hw, s):
+    """The float64 Whittle log-likelihood of (x, y) under the SE kernel with
+    jitter 1e-6 (as ``toeplitz.whittle_log_marginal``), at each (h, w) row of
+    ``hw`` (Q, 2) and each noise of ``s`` (S,): (Q, S).  The kernel part of
+    the spectrum is computed once per (h, w) node; the noise enters every bin
+    additively."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import toeplitz
+
+    f64 = torch.float64
+    x64, y64, hw = x.double(), y.double(), hw.to(f64)
+    n = x64.shape[0]
+    kern = gpx.GaussianKernel(1.0, 1.0, dtype=f64, device=x.device)
+    with torch.no_grad():
+        lam_k = toeplitz.whittle_spectrum_params(kern, hw, hw.new_zeros((hw.shape[0], 1)), x64)
+        mult = toeplitz._rfft_multiplicity(n, f64, x.device)
+        p_y = toeplitz.periodogram(y64) / n
+        return torch.stack([-0.5 * torch.sum(mult * (p_y / lam + torch.log(lam)), dim=-1)
+                            for lam in (lam_k + (torch.square(si) + 1e-6) for si in s.to(f64))],
+                           dim=-1) - 0.5 * n * math.log(2.0 * math.pi)
+
+
+def whittle_quadrature64(x, y, prior_means, center, sd):
+    """Posterior means of theta = exp(u), u = log(h, w, s), under the float64
+    Whittle posterior of (x, y) with each of ``prior_means`` (prior sd 1), by
+    a product grid over u (BAYES_QUAD_POINTS per axis within
+    BAYES_QUAD_HALF ``sd`` of ``center``): a list of (means (3,), mass on
+    the grid's faces).  The likelihood is ``whittle_lml_nodes64``, which
+    tests/test_torch_whittle.py holds to the JAX package's
+    ``whittle_log_marginal`` at N=2^20 on this data."""
+    import numpy as np
+    import torch
+
+    dev, f64 = x.device, torch.float64
+    steps = np.linspace(-BAYES_QUAD_HALF, BAYES_QUAD_HALF, BAYES_QUAD_POINTS)
+    axes = [torch.tensor(center[i] + sd[i] * steps, dtype=f64, device=dev) for i in range(3)]
+    U = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)  # (P, P, P, 3)
+    hw = torch.exp(U[:, :, 0, :2].reshape(-1, 2))
+    lml = whittle_lml_nodes64(x, y, hw, torch.exp(axes[2])).reshape(U.shape[:3])
+    out = []
+    for mu in prior_means:
+        lp = lml - 0.5 * torch.sum((U - torch.as_tensor(mu, dtype=f64, device=dev)) ** 2, -1)
+        p = torch.exp(lp - lp.max())
+        p = p / p.sum()
+        inner = p[1:-1, 1:-1, 1:-1].sum()
+        out.append((torch.einsum("abc,abcd->d", p, torch.exp(U)).cpu().numpy(),
+                    float(1.0 - inner)))
+    return out
+
+
+def check_bayes_grid_path(check, out) -> dict:
+    import numpy as np
+    from gaussian_processes_tpu_torch.inference.diagnostics import ess, split_rhat
+
+    print("bayes-grid (float32, N=2^20, 16 chains):", flush=True)
+    ref_u = reference_draws()
+    ref_theta = np.exp(ref_u)
+    ref_mean, ref_se = mean_and_se(ref_theta)
+    res, wall, warmup, samples = out["a"]
+    u = res.positions.double().cpu().numpy()
+    theta = np.exp(u)
+    mean, se = mean_and_se(theta)
+    rhat = float(split_rhat(u).max())
+    frozen = int(np.sum(u.std(0).max(-1) < 1e-6))
+    lf = res.num_leapfrog.double()
+    e = ess(u)
+    print(f"  (a) demo_bayes1m settings, {warmup} + {samples} draws: {wall:.1f} s, "
+          f"{samples * 16 / wall:.1f} samples/s (with warmup), min ESS {e.min():.0f} "
+          f"({e.min() / wall:.2f} ESS/s), mean leapfrog {float(lf.mean()):.2f} (collection), "
+          f"step {float(res.step_size):.3e}, T {float(res.traj_length):.3e}, accept "
+          f"{float(res.accept_prob.double().mean()):.3f}", flush=True)
+    print(f"      mean (h, w, s) {np.array2string(mean, precision=6)} +- "
+          f"{np.array2string(se, precision=6)}; reference {np.array2string(ref_mean, precision=6)}"
+          f" +- {np.array2string(ref_se, precision=6)}", flush=True)
+    check("bayes-grid (a) max split R-hat", rhat, BAYES_RHAT)
+    check("bayes-grid (a) frozen chains", float(frozen), 0.0)
+    check("bayes-grid (a) non-finite draws", float(np.sum(~np.isfinite(u))), 0.0)
+    flat_u = u.reshape(-1, 3)
+    x, y = out["data"]
+    ((quad_a, edge_a),) = whittle_quadrature64(x, y, (np.log(BAYES_PRIOR_A),), flat_u.mean(0),
+                                               flat_u.std(0))
+    print(f"      float64 quadrature {np.array2string(quad_a, precision=6)} (mass on the grid's "
+          f"faces {edge_a:.1e}); reference minus quadrature in its own MC SE "
+          f"{np.array2string((ref_mean - quad_a) / ref_se, precision=2)}", flush=True)
+    check("bayes-grid (a) quadrature mass on the grid's faces", edge_a, BAYES_QUAD_EDGE)
+    z = np.abs(mean - ref_mean) / np.sqrt(se ** 2 + ref_se ** 2)
+    for name, zi in zip("hw", z):
+        check(f"bayes-grid (a) posterior mean {name} vs reference (combined MC SE)", float(zi),
+              BAYES_SE)
+    zq = np.abs(mean - quad_a) / se
+    for name, zi in zip("hws", zq):
+        check(f"bayes-grid (a) posterior mean {name} vs float64 quadrature (MC SE)", float(zi),
+              BAYES_SE)
+    # (b): the config's prior mean log(1, 0.006, 0.1) against the reference's
+    # log(0.7, 0.04, 0.1), both sd 1, and its grid's float32 spacing: the
+    # reference mapped to (b)'s dx and reweighted by the prior ratio
+    b = out["b"]
+    xb, yb = out["b_data"]
+    dx_a, dx_b = float(x[1] - x[0]), float(xb[1] - xb[0])
+    mu_a, mu_b = np.log(BAYES_PRIOR_A), np.log(BAYES_PRIOR_B)
+    ref_ub = ref_u + np.array([0.0, math.log(dx_b / dx_a), 0.0])
+    logw = (-0.5 * np.sum((ref_ub - mu_b) ** 2, -1) + 0.5 * np.sum((ref_u - mu_a) ** 2, -1))
+    wts = np.exp(logw - logw.max()).reshape(-1)
+    wts /= wts.sum()
+    ref_theta_b = np.exp(ref_ub)
+    flat = ref_theta_b.reshape(-1, 3)
+    rw_mean = wts @ flat
+    # the weights' own efficiency (Kish) on top of the chains' autocorrelation
+    kish = 1.0 / np.sum(wts ** 2) / wts.size
+    rw_se = np.sqrt(wts @ (flat - rw_mean) ** 2) / np.sqrt(ess(ref_theta_b) * kish)
+    b_u = np.log(np.array(b["posterior_mean"]))
+    ((quad_b, edge_b),) = whittle_quadrature64(
+        xb, yb, (mu_b,), b_u, np.array(b["diagnostics"]["sd"]))
+    b_mean, b_se = np.array(b["posterior_mean"]), np.array(b["posterior_mean_se"])
+    d = b["diagnostics"]
+    print(f"  (b) CLI grid1m_bayes_whittle, {out['b_draws'][0]} + {out['b_draws'][1]} draws: "
+          f"{b['wall_s']:.1f} s, {b['samples_per_s']:.1f} samples/s, max R-hat "
+          f"{d['max_rhat']:.4f}, min ESS {d['min_ess']:.0f} ({d['ess_per_s']:.2f} ESS/s), mean "
+          f"leapfrog {b['mean_leapfrog']:.2f}, step {b['step_size']:.3e}, accept "
+          f"{b['accept_rate']:.3f}", flush=True)
+    print(f"      mean {np.array2string(b_mean, precision=6)} +- "
+          f"{np.array2string(b_se, precision=6)}; the reference at dx {dx_b:.4e} (not "
+          f"{dx_a:.4e}), reweighted {np.array2string(rw_mean, precision=6)} +- "
+          f"{np.array2string(rw_se, precision=6)}; float64 quadrature of (b)'s posterior "
+          f"{np.array2string(quad_b, precision=6)} (faces {edge_b:.1e})", flush=True)
+    check("bayes-grid (b) draws finite (0 = yes)", 0.0 if b["draws_finite"] else 1.0, 0.0)
+    fields = {"posterior_mean", "posterior_mean_se", "samples_per_s", "mean_leapfrog",
+              "step_size", "diagnostics", "wall_s"}
+    check("bayes-grid (b) summary fields missing", float(len(fields - set(b))), 0.0)
+    check("bayes-grid (b) max split R-hat", d["max_rhat"], BAYES_RHAT_B)
+    check("bayes-grid (b) quadrature mass on the grid's faces", edge_b, BAYES_QUAD_EDGE)
+    zb = np.abs(b_mean - rw_mean) / np.sqrt(b_se ** 2 + rw_se ** 2)
+    for name, zi in zip("hw", zb):
+        check(f"bayes-grid (b) posterior mean {name} vs the reweighted reference "
+              "(combined MC SE)", float(zi), BAYES_SE)
+    zbq = np.abs(b_mean - quad_b) / b_se
+    for name, zi in zip("hws", zbq):
+        check(f"bayes-grid (b) posterior mean {name} vs float64 quadrature (MC SE)", float(zi),
+              BAYES_SE)
+    return {"a": {"wall_s": wall, "samples_per_s": samples * 16 / wall,
+                  "ess_per_s": float(e.min() / wall), "max_rhat": rhat,
+                  "mean_leapfrog": float(lf.mean()), "step_size": float(res.step_size),
+                  "traj_length": float(res.traj_length), "posterior_mean": mean.tolist(),
+                  "quadrature": quad_a.tolist(), "z_reference": z.tolist(),
+                  "z_quadrature": zq.tolist()},
+            "b": {"wall_s": b["wall_s"], "samples_per_s": b["samples_per_s"],
+                  "ess_per_s": d["ess_per_s"], "max_rhat": d["max_rhat"],
+                  "mean_leapfrog": b["mean_leapfrog"], "step_size": b["step_size"],
+                  "posterior_mean": b["posterior_mean"], "quadrature": quad_b.tolist(),
+                  "z_reference": zb.tolist(), "z_quadrature": zbq.tolist(),
+                  "dx": [dx_a, dx_b]}}
+
+
+def ski_problem(dev):
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import ski
+
+    rng = np.random.default_rng(3)
+    x = np.sort(rng.uniform(-np.pi, np.pi, SKI_N)).astype(np.float32)
+    y = (np.sin(2 * x) + 0.1 * rng.standard_normal(SKI_N)).astype(np.float32)
+    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    k = gpx.GaussianKernel(1.0, max(100.0 * 2 * np.pi / SKI_N, 1e-4), dtype=torch.float32,
+                           device=dev)
+    return x, y, k, ski.interpolation_weights(x, ski.make_grid(x, SKI_M))
+
+
+def run_ski_path(dev) -> dict:
+    """bench.py's ski workload, twice."""
+    import gaussian_processes_tpu_torch as gpx
+
+    x, y, k, op = ski_problem(dev)
+    out = {"problem": (x, y, k, op)}
+    for run in (0, 1):
+        out[run] = synced_wall(lambda: gpx.fit_iterative(
+            k, x, y, 0.1, Float64Draws(60), num_probes=8, num_iters=SKI_ITERS, tol=1e-6,
+            jitter=1e-4, precond_rank=SKI_RANK, structure=op))
+    return out
+
+
+def check_ski_path(check, out) -> dict:
+    import torch
+    from gaussian_processes_tpu_torch.ops import ski, toeplitz
+
+    print(f"ski (float32, N={SKI_N} scattered, m={SKI_M}):", flush=True)
+    x, y, k, op = out["problem"]
+    (p0, w0), (p1, w1) = out[0], out[1]
+    op64 = ski.SKIOperator(grid=op.grid.double(), idx=op.idx, w=op.w.double(),
+                           seg_pts=op.seg_pts, seg_w=op.seg_w.double(), seg_len=op.seg_len)
+    col64 = toeplitz.toeplitz_column(k.with_params(k.params.double()), op64.grid)
+    y64 = y.double()
+    res = [float(torch.linalg.norm(ski.ski_matvec(op64, col64, p.alpha.double(), 0.01 + 1e-4)
+                                   - y64) / torch.linalg.norm(y64)) for p in (p0, p1)]
+    same = bool(torch.equal(p0.alpha, p1.alpha)) and float(p0.log_marginal) == float(
+        p1.log_marginal)
+    print(f"  fit_iterative {w0:.3f} s, again {w1:.3f} s; lml {float(p0.log_marginal):.4f}, "
+          f"{float(p1.log_marginal):.4f}; recurrence residual {float(p0.solve_residual):.3e}; "
+          f"true residual of the SKI operator (f64) {res[0]:.3e}, {res[1]:.3e}; the two runs "
+          f"{'bit-identical' if same else 'differ'}", flush=True)
+    check(f"ski N={SKI_N} lml finite (0 = yes)",
+          0.0 if bool(torch.isfinite(p0.log_marginal)) else 1.0, 0.0)
+    check(f"ski N={SKI_N} second run bit-identical to the first (0 = yes)",
+          0.0 if same else 1.0, 0.0)
+    return {"wall_s": [w0, w1], "lml": float(p0.log_marginal), "residual": res,
+            "clustered_scatter": check_ski_clustered_scatter(check, x.device)}
+
+
+def check_ski_clustered_scatter(check, dev) -> dict:
+    """W^T V on clustered inputs: memory O(n * taps), repeats bit for bit."""
+    import numpy as np
+    import torch
+    from gaussian_processes_tpu_torch.ops import ski
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-np.pi, np.pi, SKI_N)
+    x[: 3 * SKI_N // 4] = 0.5 + 1e-5 * rng.standard_normal(3 * SKI_N // 4)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    op = ski.interpolation_weights(x, ski.make_grid(x, SKI_M))
+    op64 = ski.SKIOperator(grid=op.grid.double(), idx=op.idx, w=op.w.double(),
+                           seg_pts=op.seg_pts, seg_w=op.seg_w.double(), seg_len=op.seg_len)
+    v = torch.randn((SKI_N, SKI_CLUSTER_R), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a = ski.interp_rmatvec(op, v)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    same = bool(torch.equal(a, ski.interp_rmatvec(op, v)))
+    ref = ski.interp_rmatvec(op64, v.double())
+    rel = float(torch.linalg.norm(a.double() - ref) / torch.linalg.norm(ref))
+    ms = time_ms(lambda: ski.interp_rmatvec(op, v), 20)
+    busiest = int(op.seg_len.max())
+    print(f"  clustered W^T V (N={SKI_N}, {busiest} taps on the busiest of {SKI_M} grid "
+          f"points, r={SKI_CLUSTER_R}): {ms:.4f} ms, {peak_mb:.1f} MB above the inputs "
+          f"(a table padded to the busiest point: {SKI_M * busiest * 12 / 2 ** 20:.0f} MB), "
+          f"rel error vs float64 {rel:.3e}, repeat {'bit-identical' if same else 'differs'}",
+          flush=True)
+    check("ski clustered W^T V repeat bit-identical (0 = yes)", 0.0 if same else 1.0, 0.0)
+    check("ski clustered W^T V rel error vs float64", rel, SKI_CLUSTER_REL)
+    return {"ms": ms, "peak_mb": peak_mb, "busiest_taps": busiest, "rel": rel}
+
+
+def run_ski_refine_path(dev) -> dict:
+    """bench.py's ski_refine workload: the N-D SKI fit, then one round of
+    ``ski_kron_refine`` on the fit's preconditioner."""
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import krylov, ski
+
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1, 1, (SKI_REF_N, 2)).astype(np.float32)
+    y = (np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1])
+         + 0.1 * rng.standard_normal(SKI_REF_N)).astype(np.float32)
+    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    k = gpx.ARDGaussianKernel(1.0, torch.tensor([0.15, 0.15]), dtype=torch.float32, device=dev)
+    op = ski.interpolation_weights_nd(x, (ski.make_grid(x[:, 0], SKI_REF_M1),
+                                          ski.make_grid(x[:, 1], SKI_REF_M1)))
+    L = krylov.pivoted_cholesky(k, x, SKI_REF_RANK)
+    post, fit_s = synced_wall(lambda: gpx.fit_iterative(
+        k, x, y, 0.1, Float64Draws(70), num_probes=8, num_iters=SKI_REF_ITERS, tol=1e-7,
+        jitter=1e-4, precond_rank=SKI_REF_RANK, structure=op, replace_every=10, precond_L=L))
+    refined, ref_s = synced_wall(lambda: ski.ski_kron_refine(
+        k, op, x, post.alpha, y, 0.1, jitter=1e-4, rounds=1, num_iters=SKI_REF_ITERS,
+        precond_L=L))
+    return {"fit": (post, fit_s), "refine": (refined, ref_s), "problem": (x, y, k, op)}
+
+
+def check_ski_refine_path(check, out) -> dict:
+    import torch
+    from gaussian_processes_tpu_torch.ops import kronecker, ski
+
+    print(f"ski-refine (float32 fit, float64 residual; n={SKI_REF_N}, 2-D, "
+          f"{SKI_REF_M1}^2 grid):", flush=True)
+    x, y, k, op = out["problem"]
+    post, fit_s = out["fit"]
+    ((hi, lo), rel), ref_s = out["refine"]
+    op64 = ski._to_float64(op)
+    cols64 = kronecker.kron_columns(k.with_params(k.params.double()), op64.kron)
+    y64 = y.double()
+
+    def rel64(a):
+        r = ski.ski_kron_matvec(op64, cols64, a, 0.01 + 1e-4) - y64
+        return float(torch.linalg.norm(r) / torch.linalg.norm(y64))
+
+    fit_res, pair_res = rel64(post.alpha.double()), rel64(hi.double() + lo.double())
+    print(f"  fit {fit_s:.3f} s, residual (f64) {fit_res:.3e}; refine (1 round) {ref_s:.3f} s, "
+          f"residual {float(rel):.3e} (hi + lo recomputed {pair_res:.3e})", flush=True)
+    check(f"ski-refine n={SKI_REF_N} refined residual (f64)", float(rel), SKI_REF_RESIDUAL)
+    return {"fit_s": fit_s, "fit_residual": fit_res, "refine_s": ref_s,
+            "refined_residual": float(rel)}
+
+
 def main() -> int:
     import torch
 
@@ -2103,7 +2936,13 @@ def main() -> int:
                       ("matrix-free-tree", lambda: run_tree_iterative_path(dev)),
                       *((p, lambda p=p: run_new_sampler_path(dev, p))
                         for p in ("mle-rq", "chees-matern52")),
-                      ("chains-tree", lambda: run_chains_tree_path(dev))):
+                      ("chains-tree", lambda: run_chains_tree_path(dev)),
+                      ("fit-large", lambda: run_fit_large_path(dev)),
+                      ("toeplitz", lambda: run_toeplitz_path(dev)),
+                      ("whittle", lambda: run_whittle_path(dev)),
+                      ("bayes-grid", lambda: run_bayes_grid_path(dev)),
+                      ("ski", lambda: run_ski_path(dev)),
+                      ("ski-refine", lambda: run_ski_refine_path(dev))):
         t0 = time.perf_counter()
         _build.launch_counts.clear()
         runs[path] = run()
@@ -2123,6 +2962,12 @@ def main() -> int:
     iter_summary.update(check_tree_iterative_path(check, runs["matrix-free-tree"]))
     sampler_summary.update(check_new_sampler_paths(check, runs, dev))
     check_chains_tree_path(check, runs["chains-tree"])
+    slice3 = {"fit_large": check_fit_large_path(check, runs.pop("fit-large"), dev),
+              "toeplitz": check_toeplitz_path(check, runs.pop("toeplitz"), dev, slice_rows),
+              "whittle": check_whittle_path(check, runs.pop("whittle"), dev),
+              "bayes_grid": check_bayes_grid_path(check, runs.pop("bayes-grid")),
+              "ski": check_ski_path(check, runs.pop("ski")),
+              "ski_refine": check_ski_refine_path(check, runs.pop("ski-refine"))}
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2161,6 +3006,7 @@ def main() -> int:
         "samplers": sampler_summary,
         "strip_matvec_ms": {r: slice_rows[f"strip_matvec_r{r}"]["ms"] for r in (1, 8)},
         "iterative": iter_summary,
+        "slice3": slice3,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

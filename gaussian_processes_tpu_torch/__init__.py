@@ -21,10 +21,13 @@ Layer map:
               under a left-looking blocked factorization (one matrix or a
               stack), the
               fused kernel matvec and Jacobian product (B4, B5) under the
-              Krylov solvers (krylov), the ARD K builder (B6)
+              Krylov solvers (krylov), the ARD K builder (B6); the
+              structured-grid operators on torch.fft (toeplitz: uniform 1-D
+              grids and the Whittle likelihood; kronecker: Cartesian grids;
+              ski: scattered inputs through an inducing grid)
     utils/    device and precision policy, config, metrics, profiling
-    convert   JAX-package values (as numpy) -> port objects
-    cli       the fit, mle, nuts and chees workloads end to end
+    convert   JAX-package values (as numpy) -> port objects and operators
+    cli       the fit, fit_large, mle, nuts, chees and bayes_grid workloads
 
 Everything runs where its input tensors live: the CUDA kernels for tensors
 on the card, the plain PyTorch versions for tensors on the CPU.

@@ -6,14 +6,19 @@ Usage:
     python -m gaussian_processes_tpu_torch.cli config2_mle_periodic
     python -m gaussian_processes_tpu_torch.cli config3_chees_64 --device cuda
     python -m gaussian_processes_tpu_torch.cli config3_nuts_64 --num-samples 200
+    python -m gaussian_processes_tpu_torch.cli config4_large_n
+    python -m gaussian_processes_tpu_torch.cli grid1m_bayes_whittle
     python -m gaussian_processes_tpu_torch.cli --list
 
 Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
 ``fit`` (BASELINE config #1: build K, factor, solve, predict), ``mle``
 (config #2: type-II MLE with restarts), ``nuts`` and ``chees`` tasks
-(config #3: the hyperparameter posterior sampled over many chains); the
-other tasks are listed and raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.  Every task runs on ``cuda`` unless another device is
+(config #3: the hyperparameter posterior sampled over many chains),
+``fit_large`` (config #4: the exact fit at N=65536 on one card, where the
+JAX package runs its block-cyclic factorization over a mesh) and
+``bayes_grid`` (ChEES on the Whittle posterior of a uniform grid at
+N=2^20); the other tasks are listed and raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.  Every task runs on ``cuda`` unless another device is
 asked for.  Each run emits JSONL metrics (utils/metrics.py) and an
 end-of-run summary line; ``--profile-dir`` writes a ``torch.profiler``
 trace of the timed part.
@@ -32,8 +37,6 @@ import torch
 #: tasks of the JAX package's CLI that the port does not run yet
 NOT_PORTED = {
     "nuts_multihost": "slice 5 (multi-device)",
-    "fit_large": "slice 5 (multi-device)",
-    "bayes_grid": "slice 3 (structured grids)",
     "sgpr": "slice 4 (other large-N regimes)",
 }
 
@@ -60,14 +63,21 @@ def _synchronize(device):
 
 
 def _run_fit(cfg, kernel, x, y, xo, device, device_name):
+    """The exact fit (K, the blocked factor, two solves) and its predictions.
+    For ``fit_large`` (config #4) on one device: K and the factor's separate
+    output are the two full-size buffers, 2 x 17.2 GB in float32 at N=65536,
+    timed best of 2 after a warm-up as the JAX package times it."""
     from gaussian_processes_tpu_torch import fit, predict_diag
     from gaussian_processes_tpu_torch.utils import roofline, timed, trace
 
     def fit_fn(k, x, y):
         return fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     with trace(cfg.profile_dir):
-        wall = timed(fit_fn, kernel, x, y, device=device)
+        wall = timed(fit_fn, kernel, x, y, device=device,
+                     **({"iters": 2} if cfg.task == "fit_large" else {}))
     post = fit_fn(kernel, x, y)
     mean, var = predict_diag(post, xo)
     truth = np.sin(cfg.data.freq * xo.cpu().numpy())
@@ -75,6 +85,7 @@ def _run_fit(cfg, kernel, x, y, xo, device, device_name):
     summary = {"fit_wall_s": wall, "log_marginal": float(post.log_marginal),
                "pred_rmse_vs_truth": rmse, "pred_var_min": float(var.min())}
     if device.type == "cuda":
+        summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         summary.update(roofline(cfg.data.n, wall, cfg.fit.dtype, device_name))
     return summary
 
@@ -114,18 +125,34 @@ def _run_sampler(cfg, kernel, x, y, device, dtype):
     from gaussian_processes_tpu_torch.utils import summarize_nuts, trace
 
     ncfg = cfg.nuts
-    log_post = make_log_posterior(kernel, x, y, prior_std=ncfg.prior_std,
-                                  jitter=cfg.fit.jitter)
+    if cfg.task == "bayes_grid":
+        # the Whittle (circulant-model) likelihood on a uniform grid:
+        # deterministic FFT leapfrogs, centered at the prior mean, which sits
+        # at the starting point
+        from gaussian_processes_tpu_torch.inference import make_log_posterior_whittle
+        from gaussian_processes_tpu_torch.ops.toeplitz import is_uniform_grid
+
+        if not is_uniform_grid(x):
+            raise ValueError("bayes_grid needs layout='grid'")
+        u0 = torch.log(torch.cat([kernel.params, torch.tensor([cfg.fit.noise], dtype=dtype,
+                                                               device=device)]))
+        log_post = make_log_posterior_whittle(kernel, x, y, prior_mean=u0,
+                                              prior_std=ncfg.prior_std, jitter=cfg.fit.jitter)
+    else:
+        log_post = make_log_posterior(kernel, x, y, prior_std=ncfg.prior_std,
+                                      jitter=cfg.fit.jitter)
     generator = torch.Generator(device=device).manual_seed(ncfg.seed)
     init = init_positions(kernel, cfg.fit.noise, generator, n_chains=ncfg.n_chains,
                           spread=0.2, dtype=dtype)
     _synchronize(device)
     t0 = time.perf_counter()
     with trace(cfg.profile_dir):
-        if cfg.task == "chees":
+        if cfg.task in ("chees", "bayes_grid"):
             res = sample_chees(log_post, init, generator, num_warmup=ncfg.num_warmup,
                                num_samples=ncfg.num_samples,
-                               init_step_size=ncfg.init_step_size)
+                               init_step_size=ncfg.init_step_size,
+                               **({"init_traj_length": 0.1, "max_leapfrog": 32}
+                                  if cfg.task == "bayes_grid" else {}))
         else:
             res = sample_nuts(log_post, init, generator, num_warmup=ncfg.num_warmup,
                               num_samples=ncfg.num_samples, max_depth=ncfg.max_depth,
@@ -163,7 +190,7 @@ def run_config(cfg, device="cuda") -> dict:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP {NOT_PORTED[cfg.task]})"
         )
-    if cfg.task not in ("fit", "mle", "nuts", "chees"):
+    if cfg.task not in ("fit", "fit_large", "mle", "nuts", "chees", "bayes_grid"):
         raise ValueError(f"unknown task {cfg.task!r}")
 
     device = resolve_device(device)
@@ -177,7 +204,7 @@ def run_config(cfg, device="cuda") -> dict:
     log.log("start", config=cfg.name, task=cfg.task, n=cfg.data.n,
             device=device_name, dtype=cfg.fit.dtype)
 
-    if cfg.task == "fit":
+    if cfg.task in ("fit", "fit_large"):
         summary = _run_fit(cfg, kernel, x, y, xo, device, device_name)
     elif cfg.task == "mle":
         summary = _run_mle(cfg, kernel, x, y, device)

@@ -8,7 +8,9 @@ compute the same thing on the same values.  Nothing here imports JAX.
 A kernel is named by its family and parameters, or by a spec: a leaf
 ``(family, params)`` or a tree ``("sum" | "prod", left_spec, right_spec)``,
 so that a JAX ``ProductKernel(GaussianKernel, PeriodicKernel)`` becomes
-``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.
+``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.  The structured
+operators (``KronOperator``, ``SKIOperator``, ``SKIKronOperator``) come
+from their arrays as well.
 """
 
 from __future__ import annotations
@@ -94,3 +96,32 @@ def iterative_posterior_from_numpy(family, params, x, y, noise, alpha,
         log_marginal=t(log_marginal), solve_residual=t(solve_residual),
         num_probes=int(num_probes), num_iters=int(num_iters),
     )
+
+
+def _tensor(v, device, dtype):
+    return torch.as_tensor(np.array(v), dtype=dtype, device=device)
+
+
+def kron_operator_from_numpy(axes, *, device="cpu", dtype=torch.float64):
+    """The port's ``KronOperator`` from a JAX one's per-dimension grids."""
+    from gaussian_processes_tpu_torch.ops.kronecker import KronOperator
+
+    return KronOperator(axes=tuple(_tensor(g, device, dtype) for g in axes))
+
+
+def ski_operator_from_numpy(grid, idx, w, *, device="cpu", dtype=torch.float64):
+    """The port's ``SKIOperator`` from a JAX one's ``grid``, ``idx`` and ``w``
+    (its scatter table is built from them)."""
+    from gaussian_processes_tpu_torch.ops.ski import SKIOperator
+
+    return SKIOperator(grid=_tensor(grid, device, dtype),
+                       idx=_tensor(idx, device, torch.int64), w=_tensor(w, device, dtype))
+
+
+def ski_kron_operator_from_numpy(axes, idx, w, *, device="cpu", dtype=torch.float64):
+    """The port's ``SKIKronOperator`` from a JAX one's ``kron.axes``, ``idx``
+    (n, D) and ``w`` (n, 4, D)."""
+    from gaussian_processes_tpu_torch.ops.ski import SKIKronOperator
+
+    return SKIKronOperator(kron=kron_operator_from_numpy(axes, device=device, dtype=dtype),
+                           idx=_tensor(idx, device, torch.int64), w=_tensor(w, device, dtype))

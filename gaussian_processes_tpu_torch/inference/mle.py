@@ -165,19 +165,22 @@ def fit_mle(
 ) -> MLEResult:
     """Optimize (kernel params, noise) by maximizing log p(y | x, theta).
 
-    The returned kernel/noise are in natural space.  ``objective="whittle"``
-    and ``"sgpr"`` come with slices 3 and 4 and raise, naming them.
+    The returned kernel/noise are in natural space.  ``objective``:
+    ``"exact"`` (the Cholesky log marginal likelihood) or ``"whittle"`` (the
+    circulant-model density of ``ops/toeplitz.py::whittle_log_marginal``, for
+    uniform-grid x).  ``"sgpr"`` comes with slice 4 and raises, naming it.
     """
-    if objective == "whittle":
-        raise NotImplementedError("objective='whittle' is not ported yet (ROADMAP slice 3, "
-                                  "structured grids)")
     if objective == "sgpr":
         raise NotImplementedError("objective='sgpr' is not ported yet (ROADMAP slice 4, "
                                   "other large-N regimes)")
-    if objective != "exact":
-        raise ValueError(f"unknown objective: {objective!r}")
     x = torch.as_tensor(x)
-    log_lik = gp_model.make_log_likelihood(kernel_template, x, y, jitter)
+    if objective == "whittle":
+        log_lik = gp_model.make_log_posterior_whittle(kernel_template, x, y, jitter=jitter,
+                                                      center=False, prior_std=None)
+    elif objective == "exact":
+        log_lik = gp_model.make_log_likelihood(kernel_template, x, y, jitter)
+    else:
+        raise ValueError(f"unknown objective: {objective!r}")
 
     def loss_and_grad(u):
         value, grad = log_lik.value_and_grad(u)

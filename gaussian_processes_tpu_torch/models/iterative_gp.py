@@ -18,20 +18,24 @@ identity tr(K^-1 dK) ~ mean_z[(K^-1 z)^T dK z] with the same probes.
 
 Random draws take a ``generator`` (a ``torch.Generator``, or any source of
 draws that ``ops.krylov.as_draws`` accepts) where the JAX package takes a
-key; the draws come in the JAX package's order.  Only ``structure="none"``
-is ported: the Toeplitz, SKI and Kronecker operators come with ROADMAP
-slice 3.
+key; the draws come in the JAX package's order.
+
+``structure`` selects the operator: ``"none"`` (kernel matvecs),
+``"toeplitz"`` (uniform 1-D grid, ``ops/toeplitz.py``: FFT matvecs and the
+Strang circulant preconditioner), a ``kronecker.KronOperator`` (Cartesian
+grid, ARD kernel), a ``ski.SKIOperator`` or ``ski.SKIKronOperator``
+(scattered inputs through an inducing grid, the SKI surrogate W K_g W^T).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from gaussian_processes_tpu_torch.models.gp import _LOG_2PI, _inputs, _like
-from gaussian_processes_tpu_torch.ops import krylov, pairwise
+from gaussian_processes_tpu_torch.ops import kronecker, krylov, pairwise, ski, toeplitz
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,24 +51,89 @@ class IterativePosterior:
     num_iters: int
 
 
-def _check_structure(structure) -> None:
-    if isinstance(structure, str) and structure == "none":
-        return
-    if isinstance(structure, str) and structure != "toeplitz":
+class _Operator(NamedTuple):
+    """One structure's products at one (kernel, noise), each grid column
+    built once: ``matvec`` v -> (K + (s^2 + jitter) I) v; ``circulant``
+    None, or a function giving the grid's free circulant preconditioner
+    and its SLQ terms function; ``jacvec`` U -> (P, n, r) dK/dtheta_p U."""
+
+    matvec: Callable
+    circulant: Optional[Callable]
+    jacvec: Callable
+
+
+def _shift(noise, jitter):
+    return torch.square(noise) + jitter
+
+
+def _operator(kernel, x, noise, jitter, block_size, structure="none") -> _Operator:
+    shift = _shift(noise, jitter)
+    if isinstance(structure, ski.SKIKronOperator):
+        # scattered (n, D) inputs through a Kronecker inducing grid:
+        # W ((x)_d T_d) W^T + s^2 I; dK_ski/dtheta_p = W ((x)_d T_{J_p,d}) W^T
+        cols = kronecker.kron_columns(kernel, structure.kron)
+
+        def jacvec(U):
+            WtU = ski.interp_rmatvec_nd(structure, U)
+            return torch.stack([ski.interp_matvec_nd(structure, kronecker.kron_matvec(c, WtU))
+                                for c in kronecker.kron_jacobian_columns(kernel, structure.kron)])
+
+        return _Operator(lambda v: ski.ski_kron_matvec(structure, cols, v, shift), None, jacvec)
+    if isinstance(structure, kronecker.KronOperator):
+        # D-dim Cartesian grid, separable kernel: D batched FFT sweeps; each
+        # dK/dtheta_p is Kronecker too
+        cols = kronecker.kron_columns(kernel, structure)
+
+        def circulant():
+            return (kronecker.kron_circulant_precond(cols, shift),
+                    lambda mv, draws, r, it: kronecker.slq_terms_kron_circulant(
+                        mv, cols, shift, draws, r, it))
+
+        return _Operator(lambda v: kronecker.kron_matvec(cols, v, shift), circulant,
+                         lambda U: torch.stack([kronecker.kron_matvec(c, U) for c in
+                                                kronecker.kron_jacobian_columns(kernel, structure)]))
+    if isinstance(structure, ski.SKIOperator):
+        # scattered inputs through an inducing grid: O(n) gather/scatter +
+        # O(m log m) FFT; the grid's column is one (m, 1) K build, and with
+        # W theta-independent dK_ski/dtheta_p = W T_{J_p} W^T
+        col = toeplitz.toeplitz_column(kernel, structure.grid)
+
+        def jacvec(U):
+            WtU = ski.interp_rmatvec(structure, U)
+            return torch.stack([ski.interp_matvec(structure, toeplitz.toeplitz_matvec(c, WtU))
+                                for c in toeplitz.jacobian_columns(kernel, structure.grid)])
+
+        return _Operator(lambda v: ski.ski_matvec(structure, col, v, shift), None, jacvec)
+    if isinstance(structure, str) and structure == "toeplitz":
+        # uniform-grid inputs (the caller asserts toeplitz.is_uniform_grid):
+        # K is symmetric Toeplitz, an O(n log n) FFT product, and the Strang
+        # preconditioner comes from the same column
+        col = toeplitz.toeplitz_column(kernel, x)
+
+        def circulant():
+            return (toeplitz.strang_circulant_precond(col, shift),
+                    lambda mv, draws, r, it: toeplitz.slq_terms_circulant(mv, col, shift, draws,
+                                                                          r, it))
+
+        return _Operator(lambda v: toeplitz.toeplitz_matvec(col, v, shift), circulant,
+                         lambda U: torch.stack([toeplitz.toeplitz_matvec(c, U)
+                                                for c in toeplitz.jacobian_columns(kernel, x)]))
+    if not (isinstance(structure, str) and structure == "none"):
         raise ValueError(f"unknown structure: {structure!r}")
-    raise NotImplementedError(
-        f"structure {structure!r} (Toeplitz, SKI, Kronecker operators) is not "
-        "ported yet: ROADMAP slice 3, structured grids"
-    )
 
+    def jacvec(U):
+        if x.device.type == "cuda" and pairwise.supports_fused_jacvec(kernel, x):
+            # kernel B5: each dK/dtheta_p tile is built on chip and contracted
+            # with U; the (P, n, b) Jacobian strips never exist
+            return pairwise.kernel_jacvec_fused(kernel, x, U)
+        JU = U.new_zeros((kernel.n_params, *U.shape))
+        for j in range(0, x.shape[0], block_size):
+            JU = JU + kernel.jacobian(x, x[j:j + block_size]) @ U[j:j + block_size]
+        return JU
 
-def _matvec(kernel, x, noise, jitter, block_size, structure="none"):
-    _check_structure(structure)
-
-    def mv(v):
-        return krylov.kernel_matvec(kernel, x, v, noise, jitter, block_size=block_size)
-
-    return mv
+    return _Operator(
+        lambda v: krylov.kernel_matvec(kernel, x, v, noise, jitter, block_size=block_size),
+        None, jacvec)
 
 
 def fit_iterative(
@@ -89,15 +158,20 @@ def fit_iterative(
     ``precond_rank > 0`` solves alpha with pivoted-Cholesky-preconditioned CG
     (with residual replacement every ``replace_every`` iterations) and
     estimates the logdet by preconditioned SLQ; ``precond_L`` supplies the
-    factor instead.  Otherwise one batched CG solves [y, Rademacher probes]
-    and its coefficients give the plain SLQ logdet.
+    factor instead.  Otherwise, on a grid (``structure="toeplitz"`` or a
+    ``KronOperator``), the free circulant preconditioner takes its place,
+    with the circulant-preconditioned SLQ logdet (exact logdet(P)); and
+    elsewhere one batched CG solves [y, Rademacher probes] and its
+    coefficients give the plain SLQ logdet.  With a SKI operator the target
+    is the SKI surrogate K_ski = W K_g W^T.
     """
     x, y, noise = _inputs(x, y, noise)
     draws = krylov.as_draws(generator)
     n = x.shape[0]
     dtype = y.dtype
 
-    mv = _matvec(kernel, x, noise, jitter, block_size, structure)
+    op = _operator(kernel, x, noise, jitter, block_size, structure)
+    mv = op.matvec
     if precond_rank > 0:
         L = (precond_L if precond_L is not None
              else krylov.pivoted_cholesky(kernel, x, precond_rank))
@@ -109,6 +183,14 @@ def fit_iterative(
         solve_residual = rn[0]
         logdet = krylov.slq_logdet_preconditioned(mv, L, sigma2, draws, num_probes,
                                                   num_iters, n)
+    elif op.circulant is not None:
+        pre, slq_terms = op.circulant()
+        sol, rn = krylov.pcg(mv, pre, y[:, None], num_iters=num_iters, tol=tol,
+                             replace_every=replace_every)
+        alpha = sol[:, 0]
+        solve_residual = rn[0]
+        logdet_p, terms = slq_terms(mv, draws, num_probes, num_iters)
+        logdet = logdet_p + torch.mean(terms)
     else:
         probes = draws.rademacher((n, num_probes), dtype, x.device)
         rhs = torch.cat([y[:, None], probes], dim=1)
@@ -128,9 +210,19 @@ def fit_iterative(
 def predict_mean_iterative(post: IterativePosterior, xo, block_size: int = 1024,
                            structure="none") -> torch.Tensor:
     """Predictive mean K(xo, x) @ alpha, built in blocks of test points:
-    O(n m) flops, O(b n) memory."""
-    _check_structure(structure)
+    O(n m) flops, O(b n) memory.  With a SKI ``structure`` (1-D or D-dim):
+    the KISS-GP prediction K(xo, x) ~= W_o K_g W^T, one grid projection
+    T_g (W^T alpha) interpolated to the test points."""
     xo = _like(xo, post.x)
+    if isinstance(structure, ski.SKIOperator):
+        col = toeplitz.toeplitz_column(post.kernel, structure.grid)
+        grid_mean = toeplitz.toeplitz_matvec(col, ski.interp_rmatvec(structure, post.alpha))
+        return ski.interp_matvec(ski.interpolation_weights(xo, structure.grid), grid_mean)
+    if isinstance(structure, ski.SKIKronOperator):
+        cols = kronecker.kron_columns(post.kernel, structure.kron)
+        grid_mean = kronecker.kron_matvec(cols, ski.interp_rmatvec_nd(structure, post.alpha))
+        op_o = ski.interpolation_weights_nd(xo, structure.kron.axes)
+        return ski.interp_matvec_nd(op_o, grid_mean)
     chunks = [post.kernel(xo[i:i + block_size], post.x) @ post.alpha
               for i in range(0, xo.shape[0], block_size)]
     return torch.cat(chunks) if chunks else post.alpha.new_zeros((0,))
@@ -151,14 +243,19 @@ def predict_diag_iterative(
 
     var_i = k(xo_i, xo_i) - k_i^T K^-1 k_i with the m cross-covariance
     columns solved together by (optionally preconditioned) batched CG, a
-    matvec with r = m right-hand sides per iteration (memory O(n m)).
+    matvec with r = m right-hand sides per iteration (memory O(n m)).  On a
+    grid structure the solves take its circulant preconditioner.
     """
     xo = _like(xo, post.x)
     Kxxo = post.kernel(post.x, xo)  # (n, m)
-    mv = _matvec(post.kernel, post.x, post.noise, jitter, block_size, structure)
+    op = _operator(post.kernel, post.x, post.noise, jitter, block_size, structure)
+    mv = op.matvec
     if precond_rank > 0:
         L = krylov.pivoted_cholesky(post.kernel, post.x, precond_rank)
         pre = krylov.woodbury_inverse_apply(L, torch.square(post.noise) + jitter)
+        sol, _ = krylov.pcg(mv, pre, Kxxo, num_iters=num_iters, tol=tol)
+    elif op.circulant is not None:
+        pre, _ = op.circulant()
         sol, _ = krylov.pcg(mv, pre, Kxxo, num_iters=num_iters, tol=tol)
     else:
         sol = krylov.mbcg(mv, Kxxo, num_iters=num_iters, tol=tol).solution
@@ -275,11 +372,11 @@ def log_marginal_estimate_iterative(
     draws = krylov.as_draws(generator)
     n = x.shape[0]
     dtype = y.dtype
-    P = kernel.n_params
 
     probes = draws.rademacher((n, num_probes), dtype, x.device)
     rhs = torch.cat([y[:, None], probes], dim=1)
-    mv = _matvec(kernel, x, noise, jitter, block_size, structure)
+    op = _operator(kernel, x, noise, jitter, block_size, structure)
+    mv = op.matvec
     if precond_rank > 0:
         L = krylov.pivoted_cholesky(kernel, x, precond_rank)
         sigma2 = torch.square(noise) + jitter
@@ -289,6 +386,14 @@ def log_marginal_estimate_iterative(
         logdet_terms = krylov.slq_terms_preconditioned(mv, L, sigma2, draws,
                                                        num_probes, num_iters)
         logdet = krylov.precond_logdet(L, sigma2, n) + torch.mean(logdet_terms)
+    elif op.circulant is not None:
+        # circulant-preconditioned solves and SLQ; the Hutchinson probes stay
+        # Rademacher (the trace identity needs only E[z z^T] = I)
+        pre, slq_terms = op.circulant()
+        sol, _ = krylov.pcg(mv, pre, rhs, num_iters=num_iters, tol=tol,
+                            early_exit=early_exit)
+        logdet_p, logdet_terms = slq_terms(mv, draws, num_probes, num_iters)
+        logdet = logdet_p + torch.mean(logdet_terms)
     else:
         res = krylov.mbcg(mv, rhs, num_iters=num_iters, tol=tol)
         sol = res.solution
@@ -300,14 +405,7 @@ def log_marginal_estimate_iterative(
     lml = -0.5 * torch.dot(y, alpha) - 0.5 * logdet - 0.5 * n * _LOG_2PI
 
     U = torch.cat([alpha[:, None], probes], dim=1)  # (n, r + 1)
-    if x.device.type == "cuda" and pairwise.supports_fused_jacvec(kernel, x):
-        # kernel B5: each dK/dtheta_p tile is built on chip and contracted
-        # with [alpha, probes]; the (P, n, b) Jacobian strips never exist
-        JU = pairwise.kernel_jacvec_fused(kernel, x, U)  # (P, n, r + 1)
-    else:
-        JU = U.new_zeros((P, *U.shape))
-        for j in range(0, n, block_size):
-            JU = JU + kernel.jacobian(x, x[j:j + block_size]) @ U[j:j + block_size]
+    JU = op.jacvec(U)  # (P, n, r + 1)
     quad = torch.einsum("n,pn->p", alpha, JU[:, :, 0])
     trace_kernel = torch.einsum("nr,pnr->pr", Kinv_z, JU[:, :, 1:])  # (P, r)
 

@@ -64,15 +64,11 @@ def test_make_kernel_matches_jax():
         tconfig.make_kernel(tconfig.KernelConfig(family="nope"))
 
 
-# what each config still leaves to a later slice: config #4 and the SGPR
-# workload as tasks; configs #2 and #3, whose tasks now run, the parts of
-# them that do not (the Whittle objective of MLE, the sharded sampler)
+# what each config still leaves to a later slice: the SGPR workload as a
+# task; config #3, whose tasks now run, the sharded sampler
 UNPORTED = {
-    "config2_mle_periodic": lambda cfg: tcli.run_config(
-        dataclasses.replace(cfg, task="bayes_grid"), device="cpu"),
     "config3_nuts_64": lambda cfg: tcli.run_config(
         dataclasses.replace(cfg, task="nuts_multihost"), device="cpu"),
-    "config4_large_n": lambda cfg: tcli.run_config(cfg, device="cpu"),
     "sparse1m_sgpr": lambda cfg: tcli.run_config(cfg, device="cpu"),
 }
 
@@ -81,6 +77,41 @@ UNPORTED = {
 def test_unported_tasks_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UNPORTED[name](tconfig.CONFIGS[name])
+
+
+def test_not_ported_holds_only_later_slices():
+    assert set(tcli.NOT_PORTED) == {"nuts_multihost", "sgpr"}
+
+
+def test_run_config_fit_large_matches_jax_fit():
+    import jax.numpy as jnp
+
+    import gaussian_processes_tpu as gpt
+
+    cfg = _f64(tconfig.CONFIGS["config4_large_n"])
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n=512))
+    got = tcli.run_config(cfg, device="cpu")
+    x, y, _ = jconfig.make_data(cfg.data, dtype="float64")
+    want = gpt.fit(gpt.GaussianKernel(jnp.float64(1.0), jnp.float64(1.0)), x, y,
+                   cfg.fit.noise, cfg.fit.jitter)
+    np.testing.assert_allclose(got["log_marginal"], float(want.log_marginal), rtol=1e-8)
+    assert got["pred_rmse_vs_truth"] < 0.05 and got["fit_wall_s"] > 0
+    assert "peak_memory_gb" not in got  # no device metric from a CPU run
+
+
+def test_run_config_bayes_grid_small():
+    cfg = tconfig.CONFIGS["grid1m_bayes_whittle"]
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, n=4096),
+        nuts=dataclasses.replace(cfg.nuts, n_chains=4, num_warmup=30, num_samples=30))
+    got = tcli.run_config(cfg, device="cpu")
+    assert got["n_samples"] == 30 and got["n_chains"] == 4 and got["draws_finite"]
+    assert len(got["posterior_mean"]) == 3 and np.all(np.isfinite(got["posterior_mean"]))
+    assert 1 <= got["mean_leapfrog"] <= 32 and got["step_size"] > 0
+    assert set(got["diagnostics"]) >= {"split_rhat", "ess", "max_rhat", "ess_per_s"}
+    with pytest.raises(ValueError, match="layout='grid'"):
+        tcli.run_config(dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, layout="scattered")), device="cpu")
 
 
 def _small(name, **nuts):
@@ -115,6 +146,8 @@ def test_main_list_and_fit(capsys):
     out = capsys.readouterr().out
     assert "config1_fit_se500" in out and "not ported: ROADMAP slice 5" in out
     assert "config3_chees_64" in out and "task=chees          n=500      ported" in out
+    assert "task=fit_large      n=65536    ported" in out
+    assert "task=bayes_grid     n=1048576  ported" in out
     assert tcli.main(["config1_fit_se500", "--n", "64", "--device", "cpu"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["event"] == "summary" and np.isfinite(summary["log_marginal"])

@@ -136,8 +136,30 @@ def test_init_positions_draws_by_the_jax_law():
     assert u32.dtype == torch.float32 and u32.shape == (2, 4)
 
 
-def test_whittle_builders_name_slice_3():
-    _, tk, x, y = _problem("se")
-    for builder in (tgm.make_log_posterior_whittle, tgm.make_log_posterior_whittle_kron):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            builder(tk, _t(x), _t(y))
+def test_whittle_builders_match_jax():
+    jk, tk, _, _ = _problem("se")
+    n = 128
+    x = np.arange(n) * (6.0 / n) - 3.0
+    y = np.sin(2 * x) + 0.1 * np.random.default_rng(3).standard_normal(n)
+    u = _points(2)
+    jlp = jgm.make_log_posterior_whittle(jk, x, y, prior_std=1.5)
+    tlp = tgm.make_log_posterior_whittle(tk, _t(x), _t(y), prior_std=1.5)
+    jv, jg = jax.vmap(jax.value_and_grad(jlp))(jnp.asarray(u))
+    tv, tg = tlp.value_and_grad(_t(u))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-10)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-10, atol=1e-10)
+    ard_j = gpt.ARDGaussianKernel(jnp.float64(1.0), jnp.asarray([0.5, 0.7]))
+    ard_t = gpx.ARDGaussianKernel(1.0, torch.tensor([0.5, 0.7], dtype=torch.float64))
+    from gaussian_processes_tpu.ops.kronecker import KronOperator
+    from gaussian_processes_tpu_torch.convert import kron_operator_from_numpy
+
+    g = np.arange(16) / 16.0
+    y2 = np.sin(2 * np.pi * np.add.outer(g, g)).reshape(-1)
+    jk2 = jgm.make_log_posterior_whittle_kron(ard_j, KronOperator(axes=(jnp.asarray(g),) * 2),
+                                              jnp.asarray(y2))
+    tk2 = tgm.make_log_posterior_whittle_kron(ard_t, kron_operator_from_numpy((g, g)), _t(y2))
+    u2 = np.log(np.array([1.0, 0.5, 0.7, 0.2]))
+    jv2, jg2 = jax.value_and_grad(jk2)(jnp.asarray(u2))
+    tv2, tg2 = tk2.value_and_grad(_t(u2))
+    np.testing.assert_allclose(float(tv2), float(jv2), rtol=1e-10)
+    np.testing.assert_allclose(tg2.numpy(), np.asarray(jg2), rtol=1e-10, atol=1e-10)

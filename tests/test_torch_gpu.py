@@ -667,3 +667,147 @@ def test_b4_rq_folded_log_matches_plain(cuda, a, n, r, dtype):
     _within_row_sums(got, tpw.matvec_folded_reference(k, x, v) + tpw._diag_term(0.1, 1e-6, x) * v,
                      bound, dtype)
     assert torch.equal(got, tpw.kernel_matvec_fused(k, x, v, 0.1, 1e-6))
+
+
+# --- slice 3 (structured grids) on the card: each path keeps its tensors on
+# the card and agrees with the same computation in float64 on the CPU
+
+
+def _grid(n, device, dtype=torch.float64):
+    x = torch.arange(n, dtype=torch.float64) * (6.0 / n) - 3.0
+    y = torch.sin(2 * x) + 0.1 * torch.randn(n, generator=torch.Generator().manual_seed(0),
+                                             dtype=torch.float64)
+    return x.to(device=device, dtype=dtype), y.to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("family", ["se", "matern52"])
+def test_toeplitz_fit_on_card_matches_cpu(cuda, family):
+    # decaying kernels, whose Strang-preconditioned solve converges to tol in
+    # 100 iterations (the periodic kernel's does not: 4.8e-5 after 100, so
+    # the two devices' roundings steer two unconverged iterates apart)
+    from gaussian_processes_tpu_torch.ops import toeplitz
+
+    x, y = _grid(4096, cuda)
+    k = ALL_KERNELS[family](torch.float64, cuda)
+    _build.launch_counts.clear()
+    col = toeplitz.toeplitz_column(k, x)
+    assert sum(_build.launch_counts.values()) == 1 and col.device.type == "cuda"
+    want_col = toeplitz.toeplitz_column(ALL_KERNELS[family](torch.float64, "cpu"), x.cpu())
+    torch.testing.assert_close(col.cpu(), want_col, rtol=1e-10, atol=1e-12)
+    opts = dict(num_probes=4, num_iters=100, tol=1e-10, structure="toeplitz")
+    _build.launch_counts.clear()
+    got = gpx.fit_iterative(k, x, y, 0.3, torch.Generator().manual_seed(1), **opts)
+    # one column serves the matvec and the Strang preconditioner
+    assert sum(_build.launch_counts.values()) == 1
+    want = gpx.fit_iterative(ALL_KERNELS[family](torch.float64, "cpu"), x.cpu(), y.cpu(), 0.3,
+                             torch.Generator().manual_seed(1), **opts)
+    assert got.alpha.device.type == "cuda"
+    torch.testing.assert_close(got.alpha.cpu(), want.alpha, rtol=1e-8, atol=1e-10)
+    torch.testing.assert_close(got.log_marginal.cpu(), want.log_marginal, rtol=1e-8, atol=0)
+
+
+@pytest.mark.parametrize("chains", [1, 8])
+def test_whittle_value_and_grad_on_card_match_cpu(cuda, chains):
+    from gaussian_processes_tpu_torch.inference import make_log_posterior_whittle
+
+    x, y = _grid(1 << 14, cuda)
+    u0 = torch.log(torch.tensor([1.0, 0.3, 0.1], dtype=torch.float64))
+    u = u0[None] + 0.05 * torch.randn((chains, 3), generator=torch.Generator().manual_seed(2),
+                                      dtype=torch.float64)
+    qp = lambda dev: gpx.ProductKernel(KERNELS["se"](torch.float64, dev),  # noqa: E731
+                                       KERNELS["periodic"](torch.float64, dev))
+    for make, uu in ((lambda dev: KERNELS["se"](torch.float64, dev), u),
+                     (qp, torch.cat([u[:, :2], torch.log(torch.tensor([[0.9, 1.1, 2.0]] * chains,
+                                                                       dtype=torch.float64)),
+                                     u[:, 2:]], dim=1))):
+        got = make_log_posterior_whittle(make(cuda), x, y, prior_mean=uu[0].to(cuda))
+        want = make_log_posterior_whittle(make("cpu"), x.cpu(), y.cpu(), prior_mean=uu[0])
+        gv, gg = got.value_and_grad(uu.to(cuda))
+        wv, wg = want.value_and_grad(uu)
+        assert gv.device.type == "cuda" and gg.device.type == "cuda"
+        torch.testing.assert_close(gv.cpu(), wv, rtol=1e-10, atol=1e-8)
+        torch.testing.assert_close(gg.cpu(), wg, rtol=1e-10, atol=1e-8)
+
+
+def test_ski_on_card_matches_cpu_and_repeats_bitwise(cuda):
+    from gaussian_processes_tpu_torch.ops import ski
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.sort(torch.rand(20000, generator=g, dtype=torch.float64) * 6 - 3)[0]
+    v = torch.randn((20000, 3), generator=g, dtype=torch.float64)
+    op_cpu = ski.interpolation_weights(x, ski.make_grid(x, 2048))
+    op = ski.interpolation_weights(x.to(cuda), ski.make_grid(x.to(cuda), 2048))
+    a = ski.interp_rmatvec(op, v.to(cuda))
+    assert torch.equal(a, ski.interp_rmatvec(op, v.to(cuda)))
+    torch.testing.assert_close(a.cpu(), ski.interp_rmatvec(op_cpu, v), rtol=1e-12, atol=1e-12)
+    k = KERNELS["se"](torch.float64, cuda)
+    _build.launch_counts.clear()
+    got = ski.kernel_matvec_ski(k, op, v.to(cuda), 0.2)
+    assert _build.launch_counts["pairwise_k"] == 1
+    want = ski.kernel_matvec_ski(KERNELS["se"](torch.float64, "cpu"), op_cpu, v, 0.2)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("ndim", [1, 2])
+def test_ski_clustered_scatter_on_card_matches_cpu_and_repeats_bitwise(cuda, ndim):
+    # 3/4 of the inputs inside one grid cell: the busiest grid points carry
+    # ~n taps each, one long segment of the sorted taps
+    from gaussian_processes_tpu_torch.ops import ski
+
+    g = torch.Generator().manual_seed(6)
+    n = 20000
+    x = torch.rand((n, ndim), generator=g, dtype=torch.float64) * 6 - 3
+    x[: 3 * n // 4] = 0.4 + 1e-4 * torch.randn((3 * n // 4, ndim), generator=g,
+                                               dtype=torch.float64)
+    v = torch.randn((n, 9), generator=g, dtype=torch.float64)
+
+    def build(xd):
+        if ndim == 1:
+            return ski.interpolation_weights(xd[:, 0], ski.make_grid(xd[:, 0], 512)), \
+                ski.interp_rmatvec
+        return ski.interpolation_weights_nd(xd, tuple(ski.make_grid(xd[:, d], 64)
+                                                      for d in range(ndim))), \
+            ski.interp_rmatvec_nd
+
+    (op, rm), (op_cpu, _) = build(x.to(cuda)), build(x)
+    assert int(op.seg_len.max()) >= 3 * n // 4 and op.seg_pts.numel() == n * 4 ** ndim
+    for dtype in (torch.float32, torch.float64):
+        a = rm(op, v.to(cuda, dtype))
+        assert torch.equal(a, rm(op, v.to(cuda, dtype)))
+        want = rm(op_cpu, v)
+        tol = 1e-12 if dtype == torch.float64 else 1e-4
+        assert float(torch.linalg.norm(a.cpu().double() - want) / torch.linalg.norm(want)) < tol
+
+
+def test_ski_kron_refine_on_card_reaches_its_target(cuda):
+    from gaussian_processes_tpu_torch.ops import ski
+
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand((4096, 2), generator=g) * 2 - 1).to(cuda)
+    y = torch.sin(3 * x[:, 0]) * torch.cos(2 * x[:, 1]) + 0.1 * torch.randn(
+        4096, generator=g).to(cuda)
+    k = gpx.ARDGaussianKernel(1.0, torch.tensor([0.2, 0.2]), dtype=torch.float32, device=cuda)
+    op = ski.interpolation_weights_nd(x, (ski.make_grid(x[:, 0], 32), ski.make_grid(x[:, 1], 32)))
+    post = gpx.fit_iterative(k, x, y, 0.1, torch.Generator().manual_seed(5), num_probes=2,
+                             num_iters=100, tol=1e-7, jitter=1e-4, precond_rank=128,
+                             structure=op, replace_every=10)
+    _build.launch_counts.clear()
+    (hi, lo), rel = ski.ski_kron_refine(k, op, x, post.alpha, y, 0.1, jitter=1e-4,
+                                        precond_rank=128, rounds=2)
+    assert _build.launch_counts["pairwise_ard"] == 128  # B6's pivot rows
+    assert hi.device.type == "cuda" and hi.dtype == torch.float32 and float(rel) < 1e-6
+
+
+def test_fit_large_task_on_card_matches_cpu(cuda):
+    import dataclasses
+
+    from gaussian_processes_tpu_torch import cli
+    from gaussian_processes_tpu_torch.utils import CONFIGS
+
+    cfg = CONFIGS["config4_large_n"]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n=1024),
+                              fit=dataclasses.replace(cfg.fit, dtype="float64"))
+    got = cli.run_config(cfg, device="cuda")
+    want = cli.run_config(cfg, device="cpu")
+    assert got["peak_memory_gb"] > 0 and got["fit_wall_s"] > 0
+    np.testing.assert_allclose(got["log_marginal"], want["log_marginal"], rtol=1e-10)

@@ -182,11 +182,18 @@ def test_one_adam_step_matches_optax():
         np.testing.assert_allclose(ut.detach().numpy(), np.asarray(u), rtol=1e-13)
 
 
-def test_structures_of_slice_3_are_not_ported():
-    _, tk, x, y = _problem(n=20)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tit_gp.fit_iterative(tk, _t(x), _t(y), NOISE, structure="toeplitz")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+def test_structures_of_slice_3_run_and_others_raise():
+    jk, tk, _, _ = _problem(n=20)
+    x = np.arange(64) * (6.0 / 64) - 3.0
+    y = np.sin(2 * x)
+    key = jax.random.key(0)
+    opts = dict(num_probes=3, num_iters=64, tol=1e-10, structure="toeplitz")
+    jp = jit_gp.fit_iterative(jk, x, y, NOISE, key, **opts)
+    normals = np.asarray(jax.random.normal(jax.random.split(key)[0], (64, 3), F64))
+    tp = tit_gp.fit_iterative(tk, _t(x), _t(y), NOISE, Replay(normals), **opts)
+    _close(tp.alpha, jp.alpha)
+    _close(tp.log_marginal, jp.log_marginal)
+    with pytest.raises(ValueError, match="unknown structure"):
         tit_gp.fit_iterative(tk, _t(x), _t(y), NOISE, structure=object())
     with pytest.raises(ValueError, match="unknown structure"):
         tit_gp.fit_iterative(tk, _t(x), _t(y), NOISE, structure="dense")
