@@ -57,8 +57,20 @@
    spectrum) and on a 1024^2 torus; ChEES on the Whittle posterior at 2^20
    with benchmarks/demo_bayes1m.py's settings and through the CLI's
    grid1m_bayes_whittle; bench.py's SKI fit at N=65536 (twice) and its N-D
-   SKI fit with one round of ``ski_kron_refine``.  Requires every kernel of
-   a path to have launched in that path's run.
+   SKI fit with one round of ``ski_kron_refine``.  Then slice 4: config
+   sparse1m_sgpr through the CLI (N=2^20, m=1024 k-means centres) and
+   bench.py's SGPR workload through the library (``sgpr``); ``elbo_sgpr``'s
+   value and gradient in theta, noise and z at N=65536, m=512, through B1's
+   autograd rule (B2a in its backward), 10 Adam steps of
+   ``fit_mle(objective="sgpr")``, the 8-chain value and gradient of
+   ``make_log_posterior_sgpr`` and a 16-chain ChEES run on it
+   (``sgpr-grad``); ``fit_laplace`` logistic and Poisson at n=4096 in
+   float32 and float64 with the evidence's gradient through the blocked
+   factor's autograd rule and 5 Adam steps of ``fit_laplace_mle``
+   (``laplace``); the dense pathwise sampler on config #1's fit at N=16384
+   and the iterative one on the matrix-free SE workload (``pathwise``);
+   bench.py's RFF fit at N=2^20, F=2048 (``rff``, no hand kernel).
+   Requires every kernel of a path to have launched in that path's run.
 5. Checks the results against independent plain float64 computations on the
    card (pairwise twins + torch.linalg): true residuals of the iterative
    solves, the predictive mean against the generating function, and at
@@ -78,7 +90,12 @@
    means against the committed reference draws
    (benchmarks/bayes1m_r5_accept.npz) and a float64 quadrature of the same
    posterior on the card; the SKI fit's repeat bit for bit and the refined
-   residual in float64.
+   residual in float64; slice 4's float32 bounds, predictions, gradients
+   and evidences against the same computations in float64 (the gradients
+   against the plain float64 version's autograd, no kernel), the SGPR
+   bound below a dense float64 lml and equal to it with z = x on a grid,
+   the pathwise draws' moments against the float64 posterior within
+   Monte-Carlo error and every Matheron solve's true residual.
 6. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check makes the script exit non-zero without the final line.
@@ -86,6 +103,7 @@ Any failed check makes the script exit non-zero without the final line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -371,6 +389,14 @@ KERNEL_ROWS = [
     ("B2a pairwise dK/dtheta, grid columns (P x n x 1)", "pairwise_jac",
      "pairwise_jac_grid_column", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
      "gaussian_processes_tpu/ops/pairwise.py:270", ("toeplitz",)),
+    # slice 4: the SGPR sweep's K(z, x_j) and, in its gradient, B1's
+    # autograd rule taking dK/dtheta from B2a at the same shape
+    ("B1 pairwise K, SGPR cross (m x b, no diagonal)", "pairwise_k", "pairwise_k_sgpr_cross",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88",
+     ("sgpr", "sgpr-grad")),
+    ("B2a pairwise dK/dtheta, SGPR backward (P x m x b)", "pairwise_jac",
+     "pairwise_jac_sgpr_backward", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:270", ("sgpr-grad",)),
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD
@@ -403,6 +429,16 @@ PATH_KERNELS = {
     "bayes-grid": (),
     "ski": ("pairwise_k",),
     "ski-refine": ("pairwise_ard",),
+    # slice 4: B1 builds SGPR's K(z, x_j), Kuu and cross-covariances, and
+    # under autograd B2a gives its theta-backward; Laplace factors B with the
+    # blocked factor (B3) forward and backward; the dense pathwise sampler
+    # runs on config #1's fit (B1, B3), the iterative one on B4's matvecs
+    # and B1's pivot rows; RFF runs no hand kernel, as in the JAX package
+    "sgpr": ("pairwise_k",),
+    "sgpr-grad": ("pairwise_k", "pairwise_jac"),
+    "laplace": ("pairwise_k", "pairwise_jac", "chol_tile"),
+    "pathwise": ("pairwise_k", "chol_tile", "kernel_matvec"),
+    "rff": (),
 }
 
 
@@ -507,15 +543,15 @@ def product_violation(got, want, bound, dtype_name: str) -> tuple:
     return float(err.max()), float((err / (PRODUCT_TOL[dtype_name] * bound)).max())
 
 
-def sine_problem(n, dev, dtype_name="float32"):
+def sine_problem(n, dev, dtype_name="float32", seed_=0):
     """bench.py's _sine_problem: sorted uniform x on [-pi, pi], y = sin(2x) +
-    0.1 eps, drawn in float64 from seed 0 and cast; and the SE kernel with
-    ~100 points per lengthscale, w = 100 * 2 pi / n."""
+    0.1 eps, drawn in float64 from ``seed_`` and cast; and the SE kernel with
+    ~100 points per lengthscale, w = max(100 * 2 pi / n, 1e-3)."""
     import numpy as np
     import torch
     import gaussian_processes_tpu_torch as gpx
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed_)
     x = np.sort(rng.uniform(-np.pi, np.pi, n)).astype(dtype_name)
     y = (np.sin(2 * x) + 0.1 * rng.standard_normal(n)).astype(dtype_name)
     dtype = getattr(torch, dtype_name)
@@ -2186,6 +2222,12 @@ class Float64Draws:
         return torch.randn(shape, generator=self.generator, dtype=torch.float64).to(
             dtype=dtype, device=device)
 
+    def uniform(self, shape, dtype, device):
+        import torch
+
+        return torch.rand(shape, generator=self.generator, dtype=torch.float64).to(
+            dtype=dtype, device=device)
+
 
 def synced_wall(fn):
     """(result, seconds) of ``fn()`` on the host clock, synchronized."""
@@ -2229,6 +2271,13 @@ def profile_top(fn, top: int = 8) -> list:
     total = sum(ms for ms, _ in rows.values())
     return [("total", total, sum(c for _, c in rows.values()))] + [
         (name[:90], ms, count) for name, (ms, count) in ranked[:top]]
+
+
+def profile_wall(fn):
+    """(host wall of one warm call in ms, ``profile_top`` of another)."""
+    fn()
+    _, wall = synced_wall(fn)
+    return wall * 1e3, profile_top(fn)
 
 
 def print_profile(label, rows):
@@ -2889,6 +2938,639 @@ def check_ski_refine_path(check, out) -> dict:
             "refined_residual": float(rel)}
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: SGPR, its gradient, Laplace, pathwise sampling, RFF
+# ---------------------------------------------------------------------------
+
+# config sparse1m_sgpr (N = 2^20 scattered, m = 1024 k-means centres, block
+# 8192) through the CLI, then bench.py's bench_sgpr (_sine_problem(2^20,
+# seed 7), w = max(100 * 2 pi / n, 1e-3), k-means from seed 0)
+SGPR_N, SGPR_M, SGPR_BLOCK = 1 << 20, 1024, 8192
+# float32 bound vs the same fit in float64 with the same z and the same
+# pinv cutoff (sqrt of float32's eps: a float64 fit at its own cutoff keeps
+# directions float32 drops: 3.8e-2 lower on the config's data on an H100
+# 80GB HBM3 at 700 W, PERF.md; C accumulates 128 float32 GEMMs; the JAX
+# package measured 1.6e-3 relative at n = 2e5 against float64 at the same
+# cutoff);
+# predictive means vs float64 (its 1e-2 at m = 64); a variance below
+# -1e-3 is broken numerics, not round-off; RMSE of the config's mean
+# against sin(50x) (w = 0.006 is about the spacing of 1024 centres)
+SGPR_BOUND_REL, SGPR_MEAN_ABS, SGPR_VAR_FLOOR, SGPR_RMSE = 1e-2, 1e-2, -1e-3, 0.05
+# the bound never above the dense float64 lml (a dense factor fits at
+# 16384); with z = x on a uniform grid of 1024 (Kuu's condition ~56, so no
+# direction is truncated) equal to it: the float64 CPU run gives 3.6e-14
+SGPR_DENSE_N, SGPR_EXACT_N, SGPR_EXACT_REL = 16384, 1024, 1e-8
+# elbo_sgpr's value and gradient (theta, noise, z) at N = 65536, m = 512:
+# float32 through the kernels vs the plain float64 version (no kernel) at
+# float32's cutoff, float64 vs it at float64's, GRAD_REL's limits; then 10
+# Adam steps of fit_mle(objective="sgpr"), the 8-chain value and gradient
+# of make_log_posterior_sgpr, and 16 chains of ChEES on bench.py's sine data
+# at N = 16384 with m = 128 (R-hat 1.05, acceptance as config #3's).  The
+# ChEES run is float64: with w ~ 0.5 against a centre spacing of 0.05,
+# Kuu's spectrum falls through float32's cutoff and the float32 bound is
+# rough (along w it moves 168 nats over +-0.01 where float64's moves 1.09;
+# CPU measurement), which collapsed float32 ChEES's step to 1e-6.  Its
+# chains run on u = u* + L z, u* the L-BFGS optimum of the bound and L L^T
+# the Laplace covariance there (a fixed dense mass matrix: a warmup under
+# 150 steps adapts none, and the posterior's scales span 20x), from z ~
+# N(0, I); 80 + 80 with up to 8 leapfrogs a transition.  Cut from 100 + 100
+# with up to 32 in the identity frame, which ran 806 s on an H100 80GB HBM3
+# at 700 W (PERF.md): the 16 chains evaluate one after another
+SGPR_GRAD_N, SGPR_GRAD_M, SGPR_MLE_STEPS, SGPR_POST_CHAINS = 65536, 512, 10, 8
+SGPR_CHEES = dict(chains=16, n=16384, m=128, warmup=80, samples=80, max_leapfrog=8,
+                  spread=1.0)
+SGPR_CHEES_RHAT = 1.05
+# Laplace at n = 4096 (the unrolled factorizations' autograd graph is ~6 GB
+# in float32 there): logistic labels sign(sin 2x) with 10% flipped, Poisson
+# counts of 0.1 exp(1 + sin 2x); the float32 evidence within 1e-3 of float64
+LAPLACE_N, LAPLACE_LML_REL, LAPLACE_MLE_STEPS = 4096, 1e-3, 5
+# pathwise: config #1's kernel and noise at N = 16384, 1024 query points,
+# 256 draws, F = 2048; the draws' mean and variance within 5 Monte-Carlo
+# standard errors (plus, for the variance, the feature error: the exact
+# variance under the run's own features minus predict_diag's)
+PATH_N, PATH_Q, PATH_S, PATH_F, PATH_SE = 16384, 1024, 256, 2048, 5.0
+# the iterative sampler on the matrix-free SE workload, 64 draws: each
+# draw's Matheron solve to a true residual of ITER_RESIDUAL's 1e-4
+PATH_ITER_S = 64
+# RFF: bench.py's bench_rff (_sine_problem(2^20, seed 5), F = 2048, block
+# 16384, jitter 1e-6), float32 vs float64 with the same features
+RFF_N, RFF_F, RFF_BLOCK, RFF_LML_REL, RFF_MEAN_ABS = 1 << 20, 2048, 16384, 1e-2, 1e-2
+
+
+class PlainKernel:
+    """Mixed in before a kernel class: K from the plain PyTorch version
+    (``pairwise_matrix_reference``), no hand kernel, autograd throughout."""
+
+    def forward(self, x1, x2):
+        from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+        return pw.pairwise_matrix_reference(self, x1, x2)
+
+
+def plain_se(h, w, dtype, dev):
+    import gaussian_processes_tpu_torch as gpx
+
+    cls = type("PlainGaussianKernel", (PlainKernel, gpx.GaussianKernel), {})
+    return cls(h, w, dtype=dtype, device=dev)
+
+
+def sgpr_config_data(dev, n=SGPR_N, dtype_name="float32", layout="scattered"):
+    import torch
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    data = dataclasses.replace(CONFIGS["sparse1m_sgpr"].data, n=n, layout=layout)
+    return tuple(torch.as_tensor(a, device=dev) for a in make_data(data, dtype_name))
+
+
+def check_slice4_kernels(check, dev, rows):
+    """B1 at the SGPR sweep's shape, (m, b) = (1024, 8192) with no
+    diagonal, and B2a at its backward's (P, m, b): timed against plain."""
+    import torch
+    from gaussian_processes_tpu_torch import GaussianKernel
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print("slice 4's kernel shapes (float32):", flush=True)
+    x = sgpr_config_data(dev, SGPR_BLOCK)[0]
+    z = torch.linspace(-math.pi, math.pi, SGPR_M, device=dev)
+    k = GaussianKernel(1.0, 0.006, dtype=torch.float32, device=dev)
+    nm = SGPR_M * SGPR_BLOCK
+    for key, kern, plain, iters, work in (
+            ("pairwise_k_sgpr_cross", lambda: pw.pairwise_matrix(k, z, x),
+             lambda: pw.pairwise_matrix_folded(k, z, x), 20,
+             (SE_K_OPS * nm, 4 * (SGPR_M + SGPR_BLOCK + nm))),
+            ("pairwise_jac_sgpr_backward", lambda: pw.pairwise_jacobian(k, z, x),
+             lambda: pw.pairwise_jacobian_reference(k, z, x), 20,
+             (SE_JAC_OPS * nm, 4 * (SGPR_M + SGPR_BLOCK + 2 * nm)))):
+        got, want = kern(), plain()
+        err, v = plane_violation(got, want, "float32")
+        rows[key] = {"max_abs_err": err, "ms": time_ms(kern, iters),
+                     "plain_ms": time_ms(plain, iters), **bound(*work), "library_ms": None}
+        print(f"  {key}: kernel {rows[key]['ms']:.4f} ms, plain {rows[key]['plain_ms']:.4f} ms, "
+              f"bound {rows[key]['bound_ms']:.4f} ms, max_abs_err {err:.3e}", flush=True)
+        check(f"{key} vs plain", v, 1.0)
+
+
+def run_sgpr_path(dev) -> dict:
+    """Config sparse1m_sgpr through the CLI on the card, then bench.py's
+    SGPR workload through the library (k-means, the fit, predictions)."""
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.cli import run_config
+    from gaussian_processes_tpu_torch.utils import CONFIGS
+
+    out = {"cli": run_config(CONFIGS["sparse1m_sgpr"], device=dev)}
+    x, y, xo = sgpr_config_data(dev)
+    z = gpx.kmeans_inducing(seed(CONFIGS["sparse1m_sgpr"].data.seed), x, SGPR_M, iters=5)
+    k = gpx.GaussianKernel(1.0, 0.006, dtype=torch.float32, device=dev)
+    post = gpx.fit_sgpr(k, x, y, 0.1, z)
+    out["config"] = (x, y, xo, z, post, gpx.predict_sgpr(post, xo))
+    out["profile"] = profile_wall(lambda: gpx.fit_sgpr(k, x, y, 0.1, z))
+    xb, yb, kb = sine_problem(SGPR_N, dev, seed_=7)
+    (zb, km_s) = synced_wall(lambda: gpx.kmeans_inducing(seed(0), xb, SGPR_M, iters=5))
+    fit = lambda: gpx.fit_sgpr(kb, xb, yb, 0.1, zb, block_size=SGPR_BLOCK)  # noqa: E731
+    fit()
+    walls = [synced_wall(fit)[1] for _ in range(2)]
+    postb = fit()
+    xob = torch.linspace(float(xb.min()), float(xb.max()), 64, device=dev)
+    out["bench"] = (xb, yb, xob, zb, postb, gpx.predict_sgpr(postb, xob), min(walls), km_s)
+    return out
+
+
+def check_sgpr_path(check, out, dev) -> dict:
+    """The float32 fits against the same fits in float64 with the same z on
+    the card, the bound against dense float64 lmls, the config's mean
+    against its generating function."""
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.models.sgpr import _default_rank_tol
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print(f"sgpr (float32, N=2^20, m={SGPR_M}) vs float64 on the card:", flush=True)
+    cli = out["cli"]
+    print(f"  CLI sparse1m_sgpr: fit {cli['fit_wall_s']:.4f} s (best of 2), elbo "
+          f"{cli['elbo']:.4f}, trace_gap {cli['trace_gap']:.4f}, peak memory "
+          f"{cli.get('peak_memory_gb', math.nan):.2f} GB, RMSE vs sin(50x) "
+          f"{cli['pred_rmse_vs_truth']:.4f}",
+          flush=True)
+    check("sgpr CLI summary fields missing", float(len(
+        {"fit_wall_s", "elbo", "trace_gap", "m_inducing", "pred_finite", "peak_memory_gb"}
+        - set(cli))), 0.0)
+    check("sgpr CLI predictions finite, var > -1e-3 (0 = yes)", 0.0 if cli["pred_finite"] else 1.0,
+          0.0)
+    check("sgpr CLI elbo finite (0 = yes)", 0.0 if math.isfinite(cli["elbo"]) else 1.0, 0.0)
+    check("sgpr CLI RMSE of the mean vs sin(50x)", cli["pred_rmse_vs_truth"], SGPR_RMSE)
+    print_profile(f"one fit_sgpr at N=2^20, m={SGPR_M} (wall {out['profile'][0]:.2f} ms; the "
+                  f"sweep's GEMMs' bound 2 m^2 n / 67 TFLOP/s = "
+                  f"{2 * SGPR_M ** 2 * SGPR_N / F32_PEAK_FLOPS * 1e3:.1f} ms)", out["profile"][1])
+    summary = {"cli": cli, "fit_profile": out["profile"]}
+    tol32 = _default_rank_tol(torch.float32)
+    for name, (x, y, xo, z, post, (mean, var), *walls) in (("config", out["config"]),
+                                                          ("bench", out["bench"])):
+        k64 = post.kernel.with_params(post.kernel.params.double())
+        post64 = gpx.fit_sgpr(k64, x.double(), y.double(), 0.1, z.double(), rank_tol=tol32)
+        mean64, var64 = gpx.predict_sgpr(post64, xo.double())
+        rel = abs(float(post.log_marginal) - float(post64.log_marginal)) / abs(
+            float(post64.log_marginal))
+        dmean = float((mean.double() - mean64).abs().max())
+        print(f"  {name}: bound {float(post.log_marginal):.4f} (float64 {float(post64.log_marginal):.4f}"
+              f", rel {rel:.3e}), trace_gap {float(post.trace_gap):.4f}, mean max-abs vs float64 "
+              f"{dmean:.3e}, var min {float(var.min()):.3e} (float64 {float(var64.min()):.3e})"
+              + (f", fit {walls[0]:.4f} s best of 2, k-means {walls[1]:.3f} s" if walls else ""),
+              flush=True)
+        check(f"sgpr {name} float32 bound vs float64 (rel)", rel, SGPR_BOUND_REL)
+        check(f"sgpr {name} mean vs float64 (max abs)", dmean, SGPR_MEAN_ABS)
+        check(f"sgpr {name} -min variance (float32)", -float(var.min()), -SGPR_VAR_FLOOR)
+        check(f"sgpr {name} -min variance (float64)", -float(var64.min()), -SGPR_VAR_FLOOR)
+        summary[name] = {"bound": float(post.log_marginal), "bound64": float(post64.log_marginal),
+                         "rel": rel, "mean_abs": dmean, "trace_gap": float(post.trace_gap)}
+        if walls:
+            summary[name].update(fit_wall_s=walls[0], kmeans_s=walls[1])
+    # a true lower bound: at 16384 points of the config against a dense lml
+    for n, layout, z_is_x in ((SGPR_DENSE_N, "scattered", False), (SGPR_EXACT_N, "grid", True)):
+        x, y, _ = sgpr_config_data(dev, n, "float64", layout)
+        k64 = gpx.GaussianKernel(1.0, 0.006, dtype=torch.float64, device=dev)
+        z = x if z_is_x else gpx.kmeans_inducing(seed(0), x, SGPR_M, iters=5)
+        bound_ = float(gpx.fit_sgpr(k64, x, y, 0.1, z).log_marginal)
+        K = pw.pairwise_matrix_reference(k64, x, x, noise=0.1)
+        L = torch.linalg.cholesky(K)
+        del K
+        alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+        lml = float(-0.5 * torch.dot(y, alpha) - torch.sum(torch.log(torch.diagonal(L)))
+                    - 0.5 * n * LOG_2PI)
+        del L
+        if z_is_x:
+            rel = abs(bound_ - lml) / abs(lml)
+            print(f"  z = x on a {n}-point grid: float64 bound {bound_:.10f}, dense lml "
+                  f"{lml:.10f}, rel {rel:.3e}", flush=True)
+            check(f"sgpr z = x (n={n}) float64 bound vs dense lml (rel)", rel, SGPR_EXACT_REL)
+            summary["z_equals_x_rel"] = rel
+        else:
+            print(f"  N={n}: float64 bound {bound_:.4f} <= dense float64 lml {lml:.4f}", flush=True)
+            check(f"sgpr N={n} float64 bound - dense lml", bound_ - lml, 0.0)
+            summary["dense_gap"] = lml - bound_
+        torch.cuda.empty_cache()
+    return summary
+
+
+def sgpr_grad_problem(dev, dtype, n=SGPR_GRAD_N, m=SGPR_GRAD_M):
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    x, y, _ = sgpr_config_data(dev, n)
+    z = gpx.kmeans_inducing(seed(1), x, m, iters=5)
+    return x.to(dtype), y.to(dtype), z.to(dtype)
+
+
+def elbo_value_and_grads(kernel_template, x, y, z, u0, rank_tol=None):
+    """elbo_sgpr and its gradient in u = log(h, w, s) and in z."""
+    import torch
+    from gaussian_processes_tpu_torch.inference import gp_model
+    from gaussian_processes_tpu_torch.models.sgpr import elbo_sgpr
+
+    u = u0.detach().clone().requires_grad_()
+    zz = z.detach().clone().requires_grad_()
+    kern, noise = gp_model.unpack(kernel_template, u)
+    value = elbo_sgpr(kern, x, y, noise, zz, rank_tol=rank_tol)
+    gu, gz = torch.autograd.grad(value, [u, zz])
+    return value.detach(), gu, gz
+
+
+def laplace_frame(lp, u0, h=1e-3):
+    """(u*, L): u0 as the centre and L L^T = |H|^-1, the Laplace covariance
+    (eigenvalues of H taken by magnitude), with H the log density's Hessian
+    at u0 by central differences of its gradient, one batched evaluation
+    each side.  h = 1e-3: the pinv cutoff makes the bound's gradient rough
+    at 1e-4 (a float64 run on the CPU: H's (h, h) entry -27, +28 and +145 at
+    h = 1e-3, 1e-4, 1e-5, its noise entry -32738 at each)."""
+    import torch
+
+    E = h * torch.eye(u0.shape[0], dtype=u0.dtype, device=u0.device)
+    H = (lp.value_and_grad(u0 + E)[1] - lp.value_and_grad(u0 - E)[1]) / (2 * h)
+    lam, V = torch.linalg.eigh(0.5 * (H + H.T))
+    return u0, V / torch.sqrt(lam.abs())[None, :]
+
+
+def run_sgpr_grad_path(dev) -> dict:
+    """elbo_sgpr's value and gradient through the kernels (B1 forward, B2a
+    and the plain element in its backward) in float32 and float64; Adam on
+    fit_mle(objective="sgpr"); the chains of make_log_posterior_sgpr; ChEES
+    on the SGPR posterior."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.inference import LogDensity, init_positions, sample_chees
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x, y, z = sgpr_grad_problem(dev, dtype)
+        k = gpx.GaussianKernel(1.0, 0.006, dtype=dtype, device=dev)
+        u0 = torch.log(torch.tensor([1.0, 0.006, 0.1], dtype=dtype, device=dev))
+        out[dtype], out[f"{dtype}_s"] = synced_wall(lambda: elbo_value_and_grads(k, x, y, z, u0))
+        out[f"{dtype}_s"] = synced_wall(lambda: elbo_value_and_grads(k, x, y, z, u0))[1]
+    x, y, z = sgpr_grad_problem(dev, torch.float32)
+    k = gpx.GaussianKernel(1.0, 0.006, dtype=torch.float32, device=dev)
+    u0 = torch.log(torch.tensor([1.0, 0.006, 0.1], device=dev))
+    out["profile"] = profile_wall(lambda: elbo_value_and_grads(k, x, y, z, u0))
+    k = gpx.GaussianKernel(1.3, 0.01, dtype=torch.float32, device=dev)
+    out["mle"], out["mle_s"] = synced_wall(lambda: gpx.fit_mle(
+        k, x, y, 0.2, num_steps=SGPR_MLE_STEPS, method="adam", learning_rate=0.05,
+        objective="sgpr", inducing=z))
+    lp = gpx.make_log_posterior_sgpr(gpx.GaussianKernel(1.0, 0.006, dtype=torch.float32,
+                                                        device=dev), x, y, z)
+    U = init_positions(gpx.GaussianKernel(1.0, 0.006, dtype=torch.float32, device=dev), 0.1,
+                       seed(2), n_chains=SGPR_POST_CHAINS, spread=0.2, dtype=torch.float32)
+    out["chains"], out["chains_s"] = synced_wall(lambda: lp.value_and_grad(U))
+    out["chains_problem"] = (x, y, z, U)
+    c = SGPR_CHEES
+    xc, yc, _ = sine_problem(c["n"], dev, "float64")
+    kc = gpx.GaussianKernel(1.0, 0.5, dtype=torch.float64, device=dev)
+    zc = gpx.kmeans_inducing(seed(3), xc, c["m"], iters=5)
+    lpc = gpx.make_log_posterior_sgpr(kc, xc, yc, zc, prior_std=1.0)
+    opt = gpx.fit_mle(kc, xc, yc, 0.1, num_steps=30, objective="sgpr", inducing=zc)
+    u_star, L = laplace_frame(lpc, opt.u)
+    lpz = LogDensity(lambda Z: (lambda v, g: (v, g @ L))(*lpc.value_and_grad(u_star + Z @ L.T)))
+    init = c["spread"] * torch.randn((c["chains"], 3), generator=seed(4),
+                                     dtype=torch.float64).to(dev)
+    out["chain_eval"] = profile_wall(lambda: lpc.value_and_grad(u_star[None]))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res, out["chees_s"] = synced_wall(lambda: sample_chees(
+        lpz, init, gen, num_warmup=c["warmup"], num_samples=c["samples"],
+        max_leapfrog=c["max_leapfrog"]))
+    out["chees"] = res._replace(positions=u_star + res.positions @ L.T)
+    return out
+
+
+def check_sgpr_grad_path(check, out, dev) -> dict:
+    import numpy as np
+    import torch
+    from gaussian_processes_tpu_torch.inference.diagnostics import ess, split_rhat
+    from gaussian_processes_tpu_torch.models.sgpr import _default_rank_tol
+
+    print_profile(f"one elbo_sgpr value+grad, float32, N={SGPR_GRAD_N}, m={SGPR_GRAD_M} "
+                  f"(wall {out['profile'][0]:.2f} ms)", out["profile"][1])
+    print_profile(f"one chain's value+grad of make_log_posterior_sgpr, float64, N={SGPR_CHEES['n']}, "
+                  f"m={SGPR_CHEES['m']} (wall {out['chain_eval'][0]:.2f} ms)",
+                  out["chain_eval"][1])
+    print(f"sgpr-grad (N={SGPR_GRAD_N}, m={SGPR_GRAD_M}) vs the plain float64 version's "
+          "autograd on the card:", flush=True)
+    f64 = torch.float64
+    x, y, z = sgpr_grad_problem(dev, f64)
+    u0 = torch.log(torch.tensor([1.0, 0.006, 0.1], dtype=f64, device=dev))
+    tol32 = _default_rank_tol(torch.float32)
+    plain = plain_se(1.0, 0.006, f64, dev)
+    summary = {}
+    for dtype, name in ((torch.float32, "float32"), (f64, "float64")):
+        got = out[dtype]
+        # the same function: float64 at the run's own pinv cutoff
+        want = elbo_value_and_grads(plain, x, y, z, u0, tol32 if dtype == torch.float32 else None)
+        rels = [abs(float(got[0]) - float(want[0])) / abs(float(want[0]))] + [
+            float(torch.linalg.norm(g.double() - w) / torch.linalg.norm(w))
+            for g, w in zip(got[1:], want[1:])]
+        print(f"  {name} through the kernels ({out[f'{dtype}_s']:.3f} s): value {float(got[0]):.6f} "
+              f"(plain {float(want[0]):.6f}), rel errors value {rels[0]:.2e}, d/du {rels[1]:.2e}, "
+              f"d/dz {rels[2]:.2e}", flush=True)
+        for what, r in zip(("value", "gradient in theta and noise", "gradient in z"), rels):
+            check(f"sgpr-grad {name} {what} vs plain float64 (rel)", r, GRAD_REL[name])
+        summary[name] = {"rel": rels, "wall_s": out[f"{dtype}_s"]}
+    losses = out["mle"].losses.double().cpu().numpy()
+    print(f"  fit_mle(objective='sgpr') {SGPR_MLE_STEPS} Adam steps ({out['mle_s']:.2f} s): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    check("sgpr-grad MLE losses finite (0 = yes)", 0.0 if np.isfinite(losses).all() else 1.0, 0.0)
+    check("sgpr-grad MLE last loss - first", float(losses[-1] - losses[0]), 0.0)
+    xs, ys, zs, U = out["chains_problem"]
+    lp64 = __import__("gaussian_processes_tpu_torch").make_log_posterior_sgpr(
+        plain, xs.double(), ys.double(), zs.double(), rank_tol=tol32)
+    v64, g64 = lp64.value_and_grad(U.double())
+    v32, g32 = out["chains"]
+    rel_v = float(((v32.double() - v64).abs() / v64.abs()).max())
+    rel_g = max(float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+                for a, b in zip(g32, g64))
+    print(f"  make_log_posterior_sgpr, {SGPR_POST_CHAINS} chains ({out['chains_s']:.3f} s): "
+          f"value rel {rel_v:.2e}, gradient rel {rel_g:.2e} (worst chain)", flush=True)
+    check("sgpr-grad chains value vs plain float64 (rel)", rel_v, GRAD_REL["float32"])
+    check("sgpr-grad chains gradient vs plain float64 (rel)", rel_g, GRAD_REL["float32"])
+    res = out["chees"]
+    u = res.positions.double().cpu().numpy()
+    rhat = float(split_rhat(u).max())
+    acc = float(res.accept_prob.double().mean())
+    c = SGPR_CHEES
+    print(f"  ChEES on the SGPR posterior (float64), {c['chains']} chains at N={c['n']}, "
+          f"m={c['m']}, {c['warmup']} + {c['samples']}: {out['chees_s']:.1f} s, max R-hat "
+          f"{rhat:.4f}, min ESS {float(ess(u).min()):.1f}, accept {acc:.3f}, mean leapfrog "
+          f"{float(res.num_leapfrog.double().mean()):.2f} (cap {c['max_leapfrog']}), step "
+          f"{float(res.step_size):.3e}, T {float(res.traj_length):.3e}, mean theta "
+          f"{np.array2string(np.exp(u).reshape(-1, 3).mean(0), precision=5)}", flush=True)
+    check("sgpr-grad ChEES max split R-hat", rhat, SGPR_CHEES_RHAT)
+    check("sgpr-grad ChEES accept below its low end", CHEES_ACCEPT[0] - acc, 0.0)
+    check("sgpr-grad ChEES accept above its high end", acc - CHEES_ACCEPT[1], 0.0)
+    summary.update(mle_s=out["mle_s"], chains_s=out["chains_s"], chees_s=out["chees_s"],
+                   chees_rhat=rhat, chees_accept=acc,
+                   value_and_grad_ms={"n65536_m512": out["profile"][0],
+                                      "chain_n16384_m128": out["chain_eval"][0]})
+    return summary
+
+
+def laplace_problem(dev, dtype, kind):
+    import numpy as np
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    rng = np.random.default_rng(21)
+    x = np.sort(rng.uniform(-np.pi, np.pi, LAPLACE_N))
+    if kind == "logistic":
+        y = np.sign(np.sin(2 * x))
+        y[rng.random(LAPLACE_N) < 0.1] *= -1.0
+        lik = gpx.LogisticLikelihood()
+    else:
+        y = rng.poisson(0.1 * np.exp(1.0 + np.sin(2 * x))).astype(np.float64)
+        lik = gpx.PoissonLikelihood(0.1)
+    return (torch.as_tensor(x, dtype=dtype, device=dev), torch.as_tensor(y, dtype=dtype, device=dev),
+            lik)
+
+
+def laplace_grad(kernel_template, x, y, lik):
+    """log_marginal_laplace and its gradient in u = log theta."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    u = torch.log(kernel_template.params).detach().requires_grad_()
+    value = gpx.log_marginal_laplace(kernel_template.with_params(torch.exp(u)), x, y,
+                                     likelihood=lik)
+    (g,) = torch.autograd.grad(value, u)
+    return value.detach(), g
+
+
+def run_laplace_path(dev) -> dict:
+    """fit_laplace (logistic, Poisson) in float32 and float64, the evidence's
+    gradient through B1's and the blocked factor's autograd rules, and Adam
+    on fit_laplace_mle."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    out = {}
+    for kind in ("logistic", "poisson"):
+        for dtype in (torch.float32, torch.float64):
+            x, y, lik = laplace_problem(dev, dtype, kind)
+            k = gpx.GaussianKernel(1.0, 0.5, dtype=dtype, device=dev)
+            out[kind, dtype], out[kind, dtype, "s"] = synced_wall(
+                lambda: gpx.fit_laplace(k, x, y, likelihood=lik))
+            out[kind, dtype, "grad"], out[kind, dtype, "grad_s"] = synced_wall(
+                lambda: laplace_grad(k, x, y, lik))
+    x, y, lik = laplace_problem(dev, torch.float32, "logistic")
+    out["mle"], out["mle_s"] = synced_wall(lambda: gpx.fit_laplace_mle(
+        gpx.GaussianKernel(1.3, 0.8, dtype=torch.float32, device=dev), x, y, likelihood=lik,
+        num_steps=LAPLACE_MLE_STEPS))
+    return out
+
+
+@contextlib.contextmanager
+def _swap(module, name: str, value):
+    """Set ``module.name`` to ``value`` inside a with block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def check_laplace_path(check, out, dev) -> dict:
+    import torch
+    from gaussian_processes_tpu_torch.models import classify
+
+    print(f"laplace (n={LAPLACE_N}) vs float64 and torch.linalg.cholesky's autograd:", flush=True)
+    f32, f64 = torch.float32, torch.float64
+    summary = {}
+    for kind in ("logistic", "poisson"):
+        x, y, lik = laplace_problem(dev, f64, kind)
+        # the reference: plain K, torch.linalg.cholesky and its autograd, float64
+        with _swap(classify, "choose_cholesky", lambda A: torch.linalg.cholesky):
+            want = laplace_grad(plain_se(1.0, 0.5, f64, dev), x, y, lik)
+        p32, p64 = out[kind, f32], out[kind, f64]
+        rel = abs(float(p32.log_marginal) - float(p64.log_marginal)) / abs(float(p64.log_marginal))
+        for post, name in ((p32, "float32"), (p64, "float64")):
+            d = post.newton_deltas.double()
+            check(f"laplace {kind} {name} Newton steps lowering psi", float((d < 0).sum()), 0.0)
+        check(f"laplace {kind} float32 lml vs float64 (rel)", rel, LAPLACE_LML_REL)
+        line = (f"  {kind}: lml float32 {float(p32.log_marginal):.4f} ({out[kind, f32, 's']:.3f} s),"
+                f" float64 {float(p64.log_marginal):.4f} ({out[kind, f64, 's']:.3f} s), rel {rel:.2e};"
+                f" last Newton deltas {float(p32.newton_deltas[-1]):.2e} / "
+                f"{float(p64.newton_deltas[-1]):.2e}")
+        summary[kind] = {"lml_rel": rel, "fit_s": out[kind, f32, "s"]}
+        for dtype, name in ((f32, "float32"), (f64, "float64")):
+            value, g = out[kind, dtype, "grad"]
+            r = float(torch.linalg.norm(g.double() - want[1]) / torch.linalg.norm(want[1]))
+            line += f"; gradient {name} rel {r:.2e} ({out[kind, dtype, 'grad_s']:.2f} s)"
+            check(f"laplace {kind} {name} evidence gradient vs torch.linalg.cholesky autograd "
+                  "(rel)", r, GRAD_REL[name])
+            summary[kind][f"grad_rel_{name}"] = r
+        print(line, flush=True)
+    post, losses = out["mle"]
+    losses = losses.double().cpu()
+    print(f"  fit_laplace_mle {LAPLACE_MLE_STEPS} Adam steps ({out['mle_s']:.2f} s): loss "
+          f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}, theta "
+          f"{post.kernel.params.tolist()}", flush=True)
+    check("laplace MLE losses finite (0 = yes)", 0.0 if bool(torch.isfinite(losses).all()) else 1.0,
+          0.0)
+    summary["mle_s"] = out["mle_s"]
+    return summary
+
+
+class _Recorder:
+    """Wraps a function, keeping each call's arguments and result."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        result = self.fn(*args, **kwargs)
+        self.calls.append((args, kwargs, result))
+        return result
+
+
+def pathwise_problem(dev):
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    cfg = CONFIGS["config1_fit_se500"]
+    x, y, _ = make_data(dataclasses.replace(cfg.data, n=PATH_N), "float32")
+    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    k = gpx.GaussianKernel(cfg.kernel.h, cfg.kernel.w, dtype=torch.float32, device=dev)
+    xo = torch.linspace(-3.0, 3.0, PATH_Q, device=dev)
+    return x, y, k, xo, cfg.fit.noise, cfg.fit.jitter
+
+
+def run_pathwise_path(dev) -> dict:
+    """The dense sampler on config #1's posterior at N = 16384; the iterative
+    sampler on the matrix-free SE workload (its PCG solves recorded)."""
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import krylov
+
+    x, y, k, xo, noise, jitter = pathwise_problem(dev)
+    post = gpx.fit(k, x, y, noise, jitter)
+    out = {}
+    out["dense"], out["dense_s"] = synced_wall(lambda: gpx.sample_posterior_pathwise(
+        post, xo, seed(30), PATH_S, PATH_F))
+    xi, yi, ki = sine_problem(ITER_N, dev)
+    posti = gpx.fit_iterative(ki, xi, yi, ITER_NOISE, seed(10), **ITER_OPTS)
+    rec = _Recorder(krylov.pcg)
+    opts = {key: ITER_OPTS[key] for key in ("num_iters", "jitter", "block_size", "precond_rank")}
+    with _swap(krylov, "pcg", rec):
+        out["iter"], out["iter_s"] = synced_wall(lambda: gpx.sample_posterior_pathwise_iterative(
+            posti, xo, seed(31), PATH_ITER_S, PATH_F, tol=1e-7, **opts))
+    out["iter_solve"] = rec.calls[-1]
+    out["iter_problem"] = (xi, yi, ki)
+    return out
+
+
+def check_pathwise_path(check, out, dev) -> dict:
+    import torch
+    from gaussian_processes_tpu_torch.models.pathwise import prior_features
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    print(f"pathwise (N={PATH_N}, {PATH_Q} query points, {PATH_S} draws, F={PATH_F}) vs float64 "
+          "on the card:", flush=True)
+    f64 = torch.float64
+    x, y, k, xo, noise, jitter = pathwise_problem(dev)
+    x64, y64, xo64 = x.double(), y.double(), xo.double()
+    k64 = k.with_params(k.params.double())
+    A = pw.pairwise_matrix_reference(k64, x64, x64, noise=noise, jitter=jitter)
+    L = torch.linalg.cholesky(A)
+    del A
+    Kxo = pw.pairwise_matrix_reference(k64, x64, xo64)  # (n, q)
+    V = torch.cholesky_solve(Kxo, L)  # A^-1 K(x, xo)
+    mean = V.T @ y64
+    var = k64.kdiag(xo64) - torch.sum(Kxo * V, dim=0)
+    # the exact variance under this run's features (the sampler's first draws)
+    feats = prior_features(k64, seed(30), PATH_F)
+    R = feats(xo64) - V.T @ feats(x64)
+    var_feat = torch.sum(R * R, dim=1) + noise ** 2 * torch.sum(V * V, dim=0)
+    del L, V, Kxo
+    draws = out["dense"].double()
+    d_mean, d_var = draws.mean(0), draws.var(0)
+    se_mean = torch.sqrt(var_feat / PATH_S)
+    se_var = var_feat * math.sqrt(2.0 / (PATH_S - 1))
+    z_mean = float(((d_mean - mean).abs() / se_mean).max())
+    feat_err = (var_feat - var).abs()
+    z_var = float(((d_var - var).abs() / (PATH_SE * se_var + feat_err)).max()) * PATH_SE
+    z_var_feat = float(((d_var - var_feat).abs() / se_var).max())
+    print(f"  dense sampler ({out['dense_s']:.3f} s): max |mean - predict| {float((d_mean - mean).abs().max()):.3e}"
+          f" = {z_mean:.2f} MC SE; variance vs predict_diag {z_var:.2f} (MC SE, beyond the "
+          f"feature error, max {float(feat_err.max()):.3e} of var max {float(var.max()):.3e}); vs "
+          f"the features' exact variance {z_var_feat:.2f} MC SE", flush=True)
+    check("pathwise dense draws' mean vs predict (MC SE)", z_mean, PATH_SE)
+    check("pathwise dense draws' variance vs predict_diag (MC SE + feature error)", z_var, PATH_SE)
+    summary = {"dense_s": out["dense_s"], "z_mean": z_mean, "z_var": z_var,
+               "z_var_features": z_var_feat, "feature_err_max": float(feat_err.max())}
+    (matvec, pre, rhs), kwargs, (v, resid_rec) = out["iter_solve"]
+    xi, yi, ki = out["iter_problem"]
+    k64 = ki.with_params(ki.params.double())
+    r = pw.kernel_matvec_fused_reference(k64, xi.double(), v.double(), ITER_NOISE,
+                                         ITER_JITTER) - rhs.double()
+    res = torch.linalg.norm(r, dim=0) / torch.linalg.norm(rhs.double(), dim=0)
+    print(f"  iterative sampler ({PATH_ITER_S} draws at N={ITER_N}, {out['iter_s']:.3f} s): Matheron "
+          f"solves' true residual (float64) max {float(res.max()):.3e}, median "
+          f"{float(res.median()):.3e}; recurrence max {float(resid_rec.max()):.3e}; draws finite "
+          f"{bool(torch.isfinite(out['iter']).all())}", flush=True)
+    check("pathwise iterative worst Matheron solve's true residual (float64)", float(res.max()),
+          ITER_RESIDUAL)
+    check("pathwise iterative draws finite (0 = yes)",
+          0.0 if bool(torch.isfinite(out["iter"]).all()) else 1.0, 0.0)
+    summary.update(iter_s=out["iter_s"], iter_residual_max=float(res.max()))
+    return summary
+
+
+def run_rff_path(dev) -> dict:
+    """bench.py's RFF workload in float32 (the main path) and float64, the
+    same features (drawn in float64 and cast)."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+
+    out = {}
+    for dtype_name in ("float32", "float64"):
+        x, y, k = sine_problem(RFF_N, dev, dtype_name, seed_=5)
+        xo = torch.linspace(-3.0, 3.0, 1024, dtype=x.dtype, device=dev)
+        fit = lambda: gpx.fit_rff(k, x, y, 0.1, Float64Draws(0), num_features=RFF_F,  # noqa: E731
+                                  block_size=RFF_BLOCK, jitter=1e-6)
+        post, wall = synced_wall(fit)
+        out[dtype_name] = (post, gpx.predict_rff(post, xo), wall)
+    return out
+
+
+def check_rff_path(check, out) -> dict:
+    print(f"rff (N=2^20, F={RFF_F}) float32 vs float64 with the same features:", flush=True)
+    (p32, (m32, v32), w32), (p64, (m64, v64), w64) = out["float32"], out["float64"]
+    rel = abs(float(p32.log_marginal) - float(p64.log_marginal)) / abs(float(p64.log_marginal))
+    dmean = float((m32.double() - m64).abs().max())
+    print(f"  lml float32 {float(p32.log_marginal):.4f} ({w32:.3f} s, first call), float64 "
+          f"{float(p64.log_marginal):.4f} ({w64:.3f} s), rel {rel:.2e}; mean max-abs {dmean:.3e}",
+          flush=True)
+    check("rff lml finite (0 = yes)", 0.0 if math.isfinite(float(p32.log_marginal)) else 1.0, 0.0)
+    check("rff float32 lml vs float64 (rel)", rel, RFF_LML_REL)
+    check("rff float32 mean vs float64 (max abs)", dmean, RFF_MEAN_ABS)
+    return {"lml_rel": rel, "mean_abs": dmean, "fit_s": [w32, w64]}
+
+
+def slice4_paths(dev):
+    """Slice 4's paths as (name, run) pairs, in the order main drives them."""
+    return (("sgpr", lambda: run_sgpr_path(dev)),
+            ("sgpr-grad", lambda: run_sgpr_grad_path(dev)),
+            ("laplace", lambda: run_laplace_path(dev)),
+            ("pathwise", lambda: run_pathwise_path(dev)),
+            ("rff", lambda: run_rff_path(dev)))
+
+
+def check_slice4_paths(check, runs, dev) -> dict:
+    """Checks of slice 4's paths; each run is dropped once checked."""
+    return {"sgpr": check_sgpr_path(check, runs.pop("sgpr"), dev),
+            "sgpr_grad": check_sgpr_grad_path(check, runs.pop("sgpr-grad"), dev),
+            "laplace": check_laplace_path(check, runs.pop("laplace"), dev),
+            "pathwise": check_pathwise_path(check, runs.pop("pathwise"), dev),
+            "rff": check_rff_path(check, runs.pop("rff"))}
+
+
 def main() -> int:
     import torch
 
@@ -2922,6 +3604,7 @@ def main() -> int:
     check_products_at_slice(check, dev, slice_rows)
     check_new_kernels_at_slice(check, dev, slice_rows)
     check_chain_kernels(check, dev, slice_rows)
+    check_slice4_kernels(check, dev, slice_rows)
 
     fit_cfg = CONFIGS["config1_fit_se500"].fit
     # each path runs with the counters at 0 and is read just after
@@ -2942,7 +3625,8 @@ def main() -> int:
                       ("whittle", lambda: run_whittle_path(dev)),
                       ("bayes-grid", lambda: run_bayes_grid_path(dev)),
                       ("ski", lambda: run_ski_path(dev)),
-                      ("ski-refine", lambda: run_ski_refine_path(dev))):
+                      ("ski-refine", lambda: run_ski_refine_path(dev)),
+                      *slice4_paths(dev)):
         t0 = time.perf_counter()
         _build.launch_counts.clear()
         runs[path] = run()
@@ -2968,6 +3652,7 @@ def main() -> int:
               "bayes_grid": check_bayes_grid_path(check, runs.pop("bayes-grid")),
               "ski": check_ski_path(check, runs.pop("ski")),
               "ski_refine": check_ski_refine_path(check, runs.pop("ski-refine"))}
+    slice4 = check_slice4_paths(check, runs, dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3007,6 +3692,7 @@ def main() -> int:
         "strip_matvec_ms": {r: slice_rows[f"strip_matvec_r{r}"]["ms"] for r in (1, 8)},
         "iterative": iter_summary,
         "slice3": slice3,
+        "slice4": slice4,
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

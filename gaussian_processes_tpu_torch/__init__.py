@@ -9,7 +9,10 @@ Layer map:
 
     models/   GP inference (functional core with its chain-batched value and
               gradient, reference-parity GP object, the matrix-free
-              iterative_gp: CG solves and SLQ logdet) and kernels
+              iterative_gp: CG solves and SLQ logdet; the other large-N
+              regimes: sgpr (the Titsias bound), rff (random features),
+              pathwise (Matheron posterior function draws); classify:
+              Laplace classification and count regression) and kernels
               (nn.Modules with analytic derivatives: SE, periodic, Matérn
               3/2 and 5/2, RQ, Sum/Product trees of them; ARD over (n, D))
     inference/ type-II MLE (L-BFGS / Adam), the hyperparameter posterior
@@ -27,7 +30,7 @@ Layer map:
               ski: scattered inputs through an inducing grid)
     utils/    device and precision policy, config, metrics, profiling
     convert   JAX-package values (as numpy) -> port objects and operators
-    cli       the fit, fit_large, mle, nuts, chees and bayes_grid workloads
+    cli       the fit, fit_large, mle, nuts, chees, bayes_grid and sgpr workloads
 
 Everything runs where its input tensors live: the CUDA kernels for tensors
 on the card, the plain PyTorch versions for tensors on the CPU.
@@ -70,7 +73,48 @@ from gaussian_processes_tpu_torch.models.gp import (  # noqa: E402
     predict_mean,
     sample_posterior,
 )
+from gaussian_processes_tpu_torch.models.pathwise import (  # noqa: E402
+    FourierFeatures,
+    periodic_harmonic_features,
+    prior_features,
+    sample_posterior_pathwise,
+    sample_posterior_pathwise_iterative,
+)
+from gaussian_processes_tpu_torch.models.rff import (  # noqa: E402
+    RFFPosterior,
+    fit_rff,
+    predict_rff,
+    sample_rff_posterior,
+)
+from gaussian_processes_tpu_torch.models.classify import (  # noqa: E402
+    LaplacePosterior,
+    LogisticLikelihood,
+    PoissonLikelihood,
+    fit_laplace,
+    fit_laplace_mle,
+    log_marginal_laplace,
+    predict_laplace,
+)
+from gaussian_processes_tpu_torch.models.sgpr import (  # noqa: E402
+    SGPRPosterior,
+    elbo_sgpr,
+    fit_sgpr,
+    fit_sgpr_mle,
+    kmeans_inducing,
+    make_log_posterior_sgpr,
+    predict_sgpr,
+    predict_sgpr_cov,
+    sample_sgpr_posterior,
+    select_inducing,
+)
 from gaussian_processes_tpu_torch.models.gp_object import GP  # noqa: E402
+from gaussian_processes_tpu_torch.inference import (  # noqa: E402
+    fit_mle,
+    fit_mle_restarts,
+    make_log_likelihood,
+    make_log_posterior,
+    sample_nuts,
+)
 
 __all__ = [
     "Kernel",
@@ -105,7 +149,38 @@ __all__ = [
     "log_marginal_hessian",
     "log_marginal_all",
     "likelihood_value_grad_hessian",
+    "FourierFeatures",
+    "periodic_harmonic_features",
+    "prior_features",
+    "RFFPosterior",
+    "fit_rff",
+    "predict_rff",
+    "sample_rff_posterior",
+    "sample_posterior_pathwise",
+    "sample_posterior_pathwise_iterative",
+    "LaplacePosterior",
+    "LogisticLikelihood",
+    "PoissonLikelihood",
+    "fit_laplace",
+    "fit_laplace_mle",
+    "log_marginal_laplace",
+    "predict_laplace",
+    "SGPRPosterior",
+    "elbo_sgpr",
+    "fit_sgpr",
+    "fit_sgpr_mle",
+    "kmeans_inducing",
+    "make_log_posterior_sgpr",
+    "predict_sgpr",
+    "predict_sgpr_cov",
+    "sample_sgpr_posterior",
+    "select_inducing",
     "GP",
+    "fit_mle",
+    "fit_mle_restarts",
+    "make_log_likelihood",
+    "make_log_posterior",
+    "sample_nuts",
 ]
 
 __version__ = "0.1.0"

@@ -8,6 +8,7 @@ Usage:
     python -m gaussian_processes_tpu_torch.cli config3_nuts_64 --num-samples 200
     python -m gaussian_processes_tpu_torch.cli config4_large_n
     python -m gaussian_processes_tpu_torch.cli grid1m_bayes_whittle
+    python -m gaussian_processes_tpu_torch.cli sparse1m_sgpr
     python -m gaussian_processes_tpu_torch.cli --list
 
 Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
@@ -15,10 +16,11 @@ Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
 (config #2: type-II MLE with restarts), ``nuts`` and ``chees`` tasks
 (config #3: the hyperparameter posterior sampled over many chains),
 ``fit_large`` (config #4: the exact fit at N=65536 on one card, where the
-JAX package runs its block-cyclic factorization over a mesh) and
+JAX package runs its block-cyclic factorization over a mesh),
 ``bayes_grid`` (ChEES on the Whittle posterior of a uniform grid at
-N=2^20); the other tasks are listed and raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.  Every task runs on ``cuda`` unless another device is
+N=2^20) and ``sgpr`` (the Titsias bound at N=2^20 scattered points with
+k-means inducing points); the multi-host sampler is listed and raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  Every task runs on ``cuda`` unless another device is
 asked for.  Each run emits JSONL metrics (utils/metrics.py) and an
 end-of-run summary line; ``--profile-dir`` writes a ``torch.profiler``
 trace of the timed part.
@@ -37,7 +39,6 @@ import torch
 #: tasks of the JAX package's CLI that the port does not run yet
 NOT_PORTED = {
     "nuts_multihost": "slice 5 (multi-device)",
-    "sgpr": "slice 4 (other large-N regimes)",
 }
 
 
@@ -87,6 +88,39 @@ def _run_fit(cfg, kernel, x, y, xo, device, device_name):
     if device.type == "cuda":
         summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         summary.update(roofline(cfg.data.n, wall, cfg.fit.dtype, device_name))
+    return summary
+
+
+def _run_sgpr(cfg, kernel, x, y, xo, device):
+    """The sparse (Titsias) fit: m = min(1024, max(64, n / 1024)) k-means
+    inducing points (5 Lloyd iterations from the config's seed), the fit
+    timed best of 2 after a warm-up, and its predictions at xo."""
+    from gaussian_processes_tpu_torch.models.sgpr import fit_sgpr, kmeans_inducing, predict_sgpr
+    from gaussian_processes_tpu_torch.utils import timed, trace
+
+    m_ind = min(1024, max(64, cfg.data.n // 1024))
+    z = kmeans_inducing(torch.Generator().manual_seed(cfg.data.seed), x, m_ind, iters=5)
+
+    def fit_fn(k, xx, yy):
+        return fit_sgpr(k, xx, yy, cfg.fit.noise, z, jitter=cfg.fit.jitter)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with trace(cfg.profile_dir):
+        wall = timed(fit_fn, kernel, x, y, device=device, iters=2)
+    post = fit_fn(kernel, x, y)
+    mean, var = predict_sgpr(post, xo)
+    truth = np.sin(cfg.data.freq * xo.cpu().numpy())
+    summary = {
+        "fit_wall_s": wall,
+        "elbo": float(post.log_marginal),
+        "trace_gap": float(post.trace_gap),
+        "m_inducing": m_ind,
+        "pred_finite": bool(torch.isfinite(mean).all()) and bool((var > -1e-3).all()),
+        "pred_rmse_vs_truth": float(np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2))),
+    }
+    if device.type == "cuda":
+        summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     return summary
 
 
@@ -190,7 +224,7 @@ def run_config(cfg, device="cuda") -> dict:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP {NOT_PORTED[cfg.task]})"
         )
-    if cfg.task not in ("fit", "fit_large", "mle", "nuts", "chees", "bayes_grid"):
+    if cfg.task not in ("fit", "fit_large", "mle", "nuts", "chees", "bayes_grid", "sgpr"):
         raise ValueError(f"unknown task {cfg.task!r}")
 
     device = resolve_device(device)
@@ -208,6 +242,8 @@ def run_config(cfg, device="cuda") -> dict:
         summary = _run_fit(cfg, kernel, x, y, xo, device, device_name)
     elif cfg.task == "mle":
         summary = _run_mle(cfg, kernel, x, y, device)
+    elif cfg.task == "sgpr":
+        summary = _run_sgpr(cfg, kernel, x, y, xo, device)
     else:
         summary = _run_sampler(cfg, kernel, x, y, device, dtype)
     summary = {"device": device_name, **summary}

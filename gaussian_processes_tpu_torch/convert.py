@@ -9,8 +9,9 @@ A kernel is named by its family and parameters, or by a spec: a leaf
 ``(family, params)`` or a tree ``("sum" | "prod", left_spec, right_spec)``,
 so that a JAX ``ProductKernel(GaussianKernel, PeriodicKernel)`` becomes
 ``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.  The structured
-operators (``KronOperator``, ``SKIOperator``, ``SKIKronOperator``) come
-from their arrays as well.
+operators (``KronOperator``, ``SKIOperator``, ``SKIKronOperator``), the
+Fourier feature maps and the SGPR and Laplace posteriors come from their
+arrays as well.
 """
 
 from __future__ import annotations
@@ -96,6 +97,47 @@ def iterative_posterior_from_numpy(family, params, x, y, noise, alpha,
         log_marginal=t(log_marginal), solve_residual=t(solve_residual),
         num_probes=int(num_probes), num_iters=int(num_iters),
     )
+
+
+def fourier_features_from_numpy(omega, phase, scale, *, device="cpu", dtype=torch.float64):
+    """The port's ``FourierFeatures`` from a JAX one's ``omega``, ``phase``
+    and ``scale``."""
+    from gaussian_processes_tpu_torch.models.pathwise import FourierFeatures
+
+    return FourierFeatures(omega=_tensor(omega, device, dtype), phase=_tensor(phase, device, dtype),
+                           scale=_tensor(scale, device, dtype))
+
+
+def sgpr_posterior_from_numpy(family, params, z, T_uu, V_B, lam_B, c, noise, log_marginal,
+                              trace_gap, *, device="cpu", dtype=torch.float64):
+    """The port's ``SGPRPosterior`` from the arrays of a JAX one; the kernel
+    as in ``posterior_from_numpy``."""
+    from gaussian_processes_tpu_torch.models.sgpr import SGPRPosterior
+
+    def t(v):
+        return _tensor(v, device, dtype)
+
+    return SGPRPosterior(kernel=_kernel(family, params, device, dtype), z=t(z), T_uu=t(T_uu),
+                         V_B=t(V_B), lam_B=t(lam_B), c=t(c), noise=t(noise),
+                         log_marginal=t(log_marginal), trace_gap=t(trace_gap))
+
+
+def laplace_posterior_from_numpy(family, params, likelihood, x, y, f_hat, sqrt_w, L_B, a_hat,
+                                 grad_lik, log_marginal, newton_deltas, *, device="cpu",
+                                 dtype=torch.float64):
+    """The port's ``LaplacePosterior`` from the arrays of a JAX one;
+    ``likelihood`` is the port's (``LogisticLikelihood()``,
+    ``PoissonLikelihood(binsize)``), the kernel as in
+    ``posterior_from_numpy``."""
+    from gaussian_processes_tpu_torch.models.classify import LaplacePosterior
+
+    def t(v):
+        return _tensor(v, device, dtype)
+
+    return LaplacePosterior(kernel=_kernel(family, params, device, dtype), likelihood=likelihood,
+                            x=t(x), y=t(y), f_hat=t(f_hat), sqrt_w=t(sqrt_w), L_B=t(L_B),
+                            a_hat=t(a_hat), grad_lik=t(grad_lik), log_marginal=t(log_marginal),
+                            newton_deltas=t(newton_deltas))
 
 
 def _tensor(v, device, dtype):

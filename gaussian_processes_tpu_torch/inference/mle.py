@@ -166,15 +166,22 @@ def fit_mle(
     """Optimize (kernel params, noise) by maximizing log p(y | x, theta).
 
     The returned kernel/noise are in natural space.  ``objective``:
-    ``"exact"`` (the Cholesky log marginal likelihood) or ``"whittle"`` (the
+    ``"exact"`` (the Cholesky log marginal likelihood), ``"whittle"`` (the
     circulant-model density of ``ops/toeplitz.py::whittle_log_marginal``, for
-    uniform-grid x).  ``"sgpr"`` comes with slice 4 and raises, naming it.
+    uniform-grid x) or ``"sgpr"`` (the Titsias collapsed bound of
+    ``models/sgpr.py`` at the inducing inputs ``inducing``, required; its
+    jitter is 1e-6 unless a positive one is given; to learn the inducing
+    locations too use ``models.sgpr.fit_sgpr_mle(learn_inducing=True)``).
     """
-    if objective == "sgpr":
-        raise NotImplementedError("objective='sgpr' is not ported yet (ROADMAP slice 4, "
-                                  "other large-N regimes)")
     x = torch.as_tensor(x)
-    if objective == "whittle":
+    if objective == "sgpr":
+        from gaussian_processes_tpu_torch.models.sgpr import log_density_sgpr
+
+        if inducing is None:
+            raise ValueError("objective='sgpr' requires inducing points")
+        log_lik = log_density_sgpr(kernel_template, x, y, inducing,
+                                   jitter=jitter if jitter > 0.0 else 1e-6)
+    elif objective == "whittle":
         log_lik = gp_model.make_log_posterior_whittle(kernel_template, x, y, jitter=jitter,
                                                       center=False, prior_std=None)
     elif objective == "exact":

@@ -27,6 +27,15 @@ launches the kernel or raises.  Both follow ``jnp.linalg.cholesky`` on a
 matrix that is not positive definite: its lower triangle comes back NaN and
 nothing raises (the samplers reject such proposals through the NaN).
 
+``cholesky_blocked`` carries an autograd rule (``_CholeskyBlocked``), the
+counterpart of the JAX package's VJP of its Pallas base
+(``_pallas_base_bwd``): the forward is the unchanged factorization, the
+backward the Cholesky VJP, A_bar = (S + S^T) / 2 with S = L^-T Phi(L^T
+L_bar) L^-1 (Phi: the lower triangle, its diagonal halved), by two
+``torch.linalg.solve_triangular`` calls, as the JAX package takes XLA's
+Cholesky VJP.  ``chol_tile`` itself has none and raises on an input that
+requires grad.
+
 Not ported, because they were TPU workarounds: the recursive skeleton
 (``_chol_recursive``), the two-level ``_chol_leftlook2`` (a measured
 negative), and the blocked TRSM ``solve_triangular_blocked`` (XLA's
@@ -77,7 +86,7 @@ def _launch_tile(A: torch.Tensor, with_inv: bool):
         raise TypeError(f"chol_tile: float32 or float64, got {A.dtype}")
     if not A.is_contiguous():
         raise ValueError("chol_tile: the tile must be contiguous")
-    if A.requires_grad:
+    if A.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("chol_tile: the CUDA kernel has no autograd rule; "
                            "the input must not require grad")
     if A.data_ptr() % 16:
@@ -133,10 +142,36 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
     stack, the off-diagonal solve one batched product with the stacked
     inverses.  A matrix that is not positive definite gives NaN in its own
     factor (from its failed tile on), and no other matrix of the stack is
-    touched."""
+    touched.  Differentiable (``_CholeskyBlocked``)."""
     if A.ndim not in (2, 3) or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"cholesky_blocked takes a square matrix or a stack of them, "
                          f"got {tuple(A.shape)}")
+    if A.requires_grad and torch.is_grad_enabled():
+        return _CholeskyBlocked.apply(A)
+    return _cholesky_blocked(A)
+
+
+class _CholeskyBlocked(torch.autograd.Function):
+    """``cholesky_blocked`` with the Cholesky VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, A):
+        L = _cholesky_blocked(A.detach())
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, L_bar):
+        (L,) = ctx.saved_tensors
+        phi = (L.mT @ L_bar).tril()
+        phi.diagonal(dim1=-2, dim2=-1).mul_(0.5)
+        # S = L^-T phi L^-1: solve L^T X = phi, then S^T = L^-T X^T
+        X = torch.linalg.solve_triangular(L.mT, phi, upper=True)
+        S = torch.linalg.solve_triangular(L.mT, X.mT, upper=True).mT
+        return 0.5 * (S + S.mT)
+
+
+def _cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
     n = A.shape[-1]
     n_pad = _round_up(max(n, TILE), TILE)
     if n_pad != n:

@@ -22,14 +22,16 @@ Python ``if``.  Only ``pcg(early_exit=True)`` reads the active mask each
 iteration, one synchronisation per iteration.
 
 Random numbers: the JAX package draws from keys; here every draw of the
-matrix-free path goes through one ``Draws`` object (``as_draws``), which
-takes them in order from a ``torch.Generator``.  Any object with the same
-two methods may stand in for it, which is how the tests replay the JAX
-package's draws.
+matrix-free path (and of slice 4's samplers, features and inducing points)
+goes through one ``Draws`` object (``as_draws``), which takes them in order
+from a ``torch.Generator``.  The draws are standard variates; scaling stays
+with the caller, as in the JAX functions.  Any object with the same methods
+may stand in for it, which is how the tests replay the JAX package's draws.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -58,6 +60,35 @@ class Draws:
     def normal(self, shape, dtype, device) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, dtype=dtype,
                            device=self.generator.device).to(device)
+
+    def uniform(self, shape, dtype, device) -> torch.Tensor:
+        """Uniform on [0, 1)."""
+        return torch.rand(shape, generator=self.generator, dtype=dtype,
+                          device=self.generator.device).to(device)
+
+    def gamma(self, a, shape, dtype, device) -> torch.Tensor:
+        """Gamma(a, rate 1)."""
+        conc = torch.as_tensor(a, dtype=dtype).to(self.generator.device).expand(shape)
+        return torch._standard_gamma(conc.contiguous(), generator=self.generator).to(device)
+
+    def chisquare(self, df, shape, dtype, device) -> torch.Tensor:
+        """Chi-square with ``df`` degrees of freedom: 2 Gamma(df / 2)."""
+        return 2.0 * self.gamma(0.5 * df, shape, dtype, device)
+
+    def categorical(self, logits, shape, device) -> torch.Tensor:
+        """Indices drawn with log-weights ``logits`` (K,), int64."""
+        p = torch.softmax(torch.as_tensor(logits).to(self.generator.device, torch.float64), 0)
+        idx = torch.multinomial(p, math.prod(shape), replacement=True, generator=self.generator)
+        return idx.reshape(shape).to(device)
+
+    def bernoulli(self, p, shape, device) -> torch.Tensor:
+        """Booleans, True with probability ``p`` (a scalar)."""
+        return self.uniform(shape, torch.float64, device) < float(p)
+
+    def choice(self, n: int, m: int, device) -> torch.Tensor:
+        """``m`` of ``range(n)`` without replacement, int64."""
+        return torch.randperm(n, generator=self.generator,
+                              device=self.generator.device)[:m].to(device)
 
 
 def as_draws(generator):

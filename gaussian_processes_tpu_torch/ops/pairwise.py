@@ -48,8 +48,18 @@ B5 (``*_fused_reference``, the oracles and the CPU path) form strips of K
 (or dK/dtheta) with the plain pairwise functions and contract them with
 ``torch.matmul``, as the JAX package's strip scan does.  The
 hyperparameters stay on the device as a small tensor the kernel reads
-through a pointer.  The kernels carry no autograd rule yet: a CUDA wrapper
-raises if an input requires grad.
+through a pointer.
+
+Autograd: B1 (``pairwise_matrix``) and B6 (``pairwise_matrix_ard``) carry
+an autograd rule on the card (``_PairwiseK``, ``_PairwiseArdK``), the
+counterpart of the JAX package's autodiff of its plain ``jnp`` kernel: the
+forward is the unchanged launch; the backward takes dL/dtheta from B2a's
+planes at the same (x1, x2) (a tree's from its matrix-level
+``jacobian``), tr(G) for the diagonal term, and the input gradients (and
+ARD's theta) from autograd of the plain element on the recomputed block,
+only when asked.  The other wrappers (B2, B4, B5, the chain tables, the
+pivot rows) raise if an input requires grad: the paths that use them carry
+analytic gradients.
 
 Launch counters: each wrapper counts under its kernel's name for SE and
 periodic, and under the name and the family (``pairwise_k_matern52``,
@@ -217,7 +227,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
                             f"float64, got {[u.dtype for u in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if t.requires_grad:
+        if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{name}: the CUDA kernel has no autograd rule; "
                                "inputs must not require grad")
 
@@ -268,6 +278,50 @@ def _launch_deriv(kernel, x1, x2, params, order: int, value: int, shape):
     return out
 
 
+def _wants_grad(*tensors) -> bool:
+    """True when autograd records and an input of a launch requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _theta_grad(kernel, x1, x2, G) -> torch.Tensor:
+    """(P,) sum_ij G_ij dK_ij/dtheta_p: B2a's planes on a card for a leaf, a
+    tree's matrix-level ``jacobian`` (its leaves' B1 and B2a launches)."""
+    J = kernel.jacobian(x1, x2)
+    return J.reshape(J.shape[0], -1) @ G.reshape(-1)
+
+
+class _PairwiseK(torch.autograd.Function):
+    """Kernel B1 with its backward.  Inputs x1, x2 (1-D) and params (P,) or
+    (P + 1,) with the diagonal term s^2 + jitter last."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, params, kernel, with_diag):
+        x1, x2, params = x1.detach(), x2.detach(), params.detach()
+        ctx.save_for_backward(x1, x2, params)
+        ctx.kernel, ctx.with_diag = kernel, with_diag
+        return _launch_k(kernel, x1, x2, params, with_diag)
+
+    @staticmethod
+    def backward(ctx, G):
+        x1, x2, params = ctx.saved_tensors
+        kernel = ctx.kernel
+        theta = params[:kernel.n_params]
+        g_x1 = g_x2 = g_params = None
+        if ctx.needs_input_grad[2]:
+            g_params = _theta_grad(kernel.with_params(theta), x1, x2, G)
+            if ctx.with_diag:
+                g_params = torch.cat([g_params, torch.diagonal(G).sum()[None]])
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            # d K_ij / d x1_i = k'(d_ij) = - d K_ij / d x2_j: autograd of the
+            # plain element on the recomputed differences
+            with torch.enable_grad():
+                d = pairwise_diff(x1, x2).requires_grad_()
+                (gd,) = torch.autograd.grad(_k_fn(kernel)(d, *theta.unbind(0)), d, G)
+            g_x1 = gd.sum(1) if ctx.needs_input_grad[0] else None
+            g_x2 = -gd.sum(0) if ctx.needs_input_grad[1] else None
+        return g_x1, g_x2, g_params, None, None
+
+
 def _unsupported(x) -> RuntimeError:
     return RuntimeError(f"no pairwise kernel for device {x.device}")
 
@@ -290,6 +344,8 @@ def pairwise_matrix(kernel, x1, x2, *, noise=None, jitter: float = 0.0) -> torch
     with_diag = noise is not None
     if with_diag:
         params = torch.cat([params, _diag_term(noise, jitter, x1)[None]])
+    if _wants_grad(x1, x2, params):
+        return _PairwiseK.apply(x1, x2, params, kernel, with_diag)
     return _launch_k(kernel, x1, x2, params, with_diag)
 
 
@@ -622,6 +678,41 @@ def pairwise_matrix_ard(kernel, x1, x2, *, noise=None, jitter: float = 0.0) -> t
     h = kernel.h.to(device=x1.device, dtype=x1.dtype)
     w = kernel.w.to(device=x1.device, dtype=x1.dtype).contiguous()
     diag = None if noise is None else _diag_term(noise, jitter, x1)
+    if _wants_grad(x1, x2, h, w, diag):
+        return _PairwiseArdK.apply(x1, x2, h, w, diag)
+    return _launch_ard(x1, x2, h, w, diag)
+
+
+class _PairwiseArdK(torch.autograd.Function):
+    """Kernel B6 with its backward: B2a has no ARD case, so every gradient
+    (h, w, the inputs) is autograd of the plain ARD element on the
+    recomputed block, as the JAX package differentiates its ``jnp``
+    kernel; the diagonal term's is tr(G)."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, h, w, diag):
+        x1, x2, h, w = x1.detach(), x2.detach(), h.detach(), w.detach()
+        ctx.save_for_backward(x1, x2, h, w)
+        ctx.with_diag = diag is not None
+        return _launch_ard(x1, x2, h, w, None if diag is None else diag.detach())
+
+    @staticmethod
+    def backward(ctx, G):
+        needs = ctx.needs_input_grad[:4]
+        grads = [None] * 4
+        if any(needs):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(need)
+                          for t, need in zip(ctx.saved_tensors, needs)]
+                K = _ard_k(leaves[2], leaves[3], leaves[0], leaves[1])
+                wanted = [t for t in leaves if t.requires_grad]
+                got = iter(torch.autograd.grad(K, wanted, G))
+            grads = [next(got) if need else None for need in needs]
+        g_diag = torch.diagonal(G).sum() if ctx.needs_input_grad[4] else None
+        return (*grads, g_diag)
+
+
+def _launch_ard(x1, x2, h, w, diag) -> torch.Tensor:
     _check_cuda("pairwise_matrix_ard", x1, x2, h, w, *([] if diag is None else [diag]))
     (n, D), m = x1.shape, x2.shape[0]
     if max(n, m) > _INT32_MAX or D > _MAX_ARD_DIM:
@@ -646,14 +737,17 @@ def pairwise_matrix_ard_reference(kernel, x1, x2, *, noise=None, jitter=0.0) -> 
     as the Pallas body does."""
     x1, x2 = _points(kernel, x1, x2)
     params = _params_like(kernel, x1)
-    h, w = params[0], params[1:]
-    acc = x1.new_zeros((x1.shape[0], x2.shape[0]))
-    for d in range(x1.shape[1]):
-        acc = acc + torch.square((x1[:, d, None] - x2[None, :, d]) / w[d])
-    K = torch.square(h) * torch.exp(-0.5 * acc)
+    K = _ard_k(params[0], params[1:], x1, x2)
     if noise is not None:
         K.diagonal().add_(_diag_term(noise, jitter, x1))
     return K
+
+
+def _ard_k(h, w, x1, x2) -> torch.Tensor:
+    acc = x1.new_zeros((x1.shape[0], x2.shape[0]))
+    for d in range(x1.shape[1]):
+        acc = acc + torch.square((x1[:, d, None] - x2[None, :, d]) / w[d])
+    return torch.square(h) * torch.exp(-0.5 * acc)
 
 
 # ---------------------------------------------------------------------------

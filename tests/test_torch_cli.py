@@ -64,12 +64,11 @@ def test_make_kernel_matches_jax():
         tconfig.make_kernel(tconfig.KernelConfig(family="nope"))
 
 
-# what each config still leaves to a later slice: the SGPR workload as a
-# task; config #3, whose tasks now run, the sharded sampler
+# what each config still leaves to a later slice: config #3, whose tasks
+# now run, the sharded sampler
 UNPORTED = {
     "config3_nuts_64": lambda cfg: tcli.run_config(
         dataclasses.replace(cfg, task="nuts_multihost"), device="cpu"),
-    "sparse1m_sgpr": lambda cfg: tcli.run_config(cfg, device="cpu"),
 }
 
 
@@ -80,7 +79,29 @@ def test_unported_tasks_name_their_roadmap_item(name):
 
 
 def test_not_ported_holds_only_later_slices():
-    assert set(tcli.NOT_PORTED) == {"nuts_multihost", "sgpr"}
+    assert set(tcli.NOT_PORTED) == {"nuts_multihost"}
+
+
+def test_run_config_sgpr_matches_jax_fit_sgpr():
+    import jax.numpy as jnp
+
+    import gaussian_processes_tpu as gpt
+    from gaussian_processes_tpu_torch.models.sgpr import kmeans_inducing
+
+    cfg = _f64(tconfig.CONFIGS["sparse1m_sgpr"])
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n=4096))
+    got = tcli.run_config(cfg, device="cpu")
+    assert set(got) >= {"fit_wall_s", "elbo", "trace_gap", "m_inducing", "pred_finite"}
+    assert got["m_inducing"] == 64 and got["pred_finite"] and got["fit_wall_s"] > 0
+    assert "peak_memory_gb" not in got  # no device metric from a CPU run
+    # the JAX package's bound at the port's own inducing points
+    x, y, _ = jconfig.make_data(cfg.data, dtype="float64")
+    z = kmeans_inducing(torch.Generator().manual_seed(cfg.data.seed), torch.as_tensor(x), 64,
+                        iters=5)
+    want = gpt.fit_sgpr(gpt.GaussianKernel(jnp.float64(1.0), jnp.float64(0.006)), x, y,
+                        cfg.fit.noise, z.numpy(), jitter=cfg.fit.jitter)
+    np.testing.assert_allclose(got["elbo"], float(want.log_marginal), rtol=1e-9)
+    np.testing.assert_allclose(got["trace_gap"], float(want.trace_gap), rtol=1e-9)
 
 
 def test_run_config_fit_large_matches_jax_fit():

@@ -101,11 +101,100 @@ def test_pairwise_kernels_match_plain(cuda, family, dtype, n, m):
     assert after["pairwise_hess"] - before.get("pairwise_hess", 0) == 2
 
 
-def test_pairwise_rejects_grad(cuda):
-    k = KERNELS["se"](torch.float32, cuda)
-    x = _x(16, 2, torch.float32, cuda).requires_grad_()
+# autograd rules against the plain versions' autograd (float64 on the
+# card): relative to the largest entry of each gradient
+GRAD_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def _grads_of_k(kernel, x1, x2, G, build, noise=None):
+    """d <G, K> / d(theta, x1, x2[, noise]) through ``build``."""
+    theta = kernel.params.detach().clone().requires_grad_()
+    a, b = x1.detach().clone().requires_grad_(), x2.detach().clone().requires_grad_()
+    leaves = [theta, a, b]
+    kw = {}
+    if noise is not None:
+        s = torch.tensor(noise, dtype=x1.dtype, device=x1.device, requires_grad=True)
+        leaves.append(s)
+        kw = {"noise": s, "jitter": 1e-6}
+    K = build(kernel.with_params(theta), a, b, **kw)
+    return K.detach(), torch.autograd.grad(K, leaves, G)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["se", "rq", "product", "ard"])
+def test_pairwise_grad_matches_plain_autograd(cuda, kind, dtype):
+    """B1's (B6's) autograd rule: theta from B2a's planes (a tree's from its
+    matrix-level Jacobian, ARD's from the plain element), the inputs from
+    the plain element's autograd, the diagonal term tr(G)."""
+    if kind == "ard":
+        k = gpx.ARDGaussianKernel(1.1, torch.tensor([0.7, 1.3], dtype=dtype), device=cuda)
+        g = torch.Generator().manual_seed(4)
+        x1 = (torch.rand((300, 2), generator=g, dtype=torch.float64) * 4 - 2).to(cuda, dtype)
+        x2 = (torch.rand((129, 2), generator=g, dtype=torch.float64) * 4 - 2).to(cuda, dtype)
+        build, plain = tpw.pairwise_matrix_ard, tpw.pairwise_matrix_ard_reference
+    else:
+        k = ALL_KERNELS[kind](dtype, cuda) if kind != "product" else _tree(kind, dtype, cuda)
+        x1, x2 = _x(300, 0, dtype, cuda), _x(129, 1, dtype, cuda)
+        build, plain = tpw.pairwise_matrix, tpw.pairwise_matrix_reference
+    G = torch.randn((300, 129), generator=torch.Generator(device=cuda).manual_seed(1),
+                    dtype=dtype, device=cuda)
+    before = dict(_build.launch_counts)
+    K, got = _grads_of_k(k, x1, x2, G, build)
+    k64 = k.with_params(k.params.double())
+    _, want = _grads_of_k(k64, x1.double(), x2.double(), G.double(), plain)
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_.double(), w_, rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype] * float(w_.abs().max()))
+    # with the diagonal term, on K(x, x)
+    _, got = _grads_of_k(k, x1, x1, G[:, :1].expand(300, 300).contiguous(), build, noise=0.3)
+    _, want = _grads_of_k(k64, x1.double(), x1.double(),
+                          G[:, :1].expand(300, 300).double(), plain, noise=0.3)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.double(), w_, rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype] * float(w_.abs().max()))
+    after = _build.launch_counts
+    if kind == "ard":
+        assert after["pairwise_ard"] - before.get("pairwise_ard", 0) == 2
+    elif kind == "product":
+        assert after["pairwise_k_tree"] - before.get("pairwise_k_tree", 0) == 2
+        assert after["pairwise_jac"] - before.get("pairwise_jac", 0) == 4  # SE, periodic leaves
+    else:
+        suffix = "" if kind == "se" else f"_{kind}"
+        assert after["pairwise_k" + suffix] - before.get("pairwise_k" + suffix, 0) == 2
+        assert after["pairwise_jac" + suffix] - before.get("pairwise_jac" + suffix, 0) == 2
+    # other wrappers keep refusing an input that requires grad
+    xg = _x(64, 3, dtype, cuda).requires_grad_()
     with pytest.raises(RuntimeError, match="autograd"):
-        tpw.pairwise_matrix(k, x, x.detach())
+        tpw.kernel_matvec_fused(gpx.GaussianKernel(1.0, 1.0, dtype=dtype, device=cuda), xg,
+                                torch.ones_like(xg), 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(300,), (5, 260)], ids=["matrix", "stack"])
+def test_cholesky_blocked_grad_matches_plain_autograd(cuda, dtype, shape):
+    """The blocked factor's autograd rule (the Cholesky VJP by two
+    triangular solves) against ``torch.linalg.cholesky``'s autograd in
+    float64; B3 runs forward, ``chol_tile`` itself keeps its raise."""
+    n = shape[-1]
+    k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64)
+    mats = [k(_x(n, 10 + c, torch.float64, "cpu"), _x(n, 10 + c, torch.float64, "cpu"))
+            + 0.1 * torch.eye(n, dtype=torch.float64) for c in range(shape[0] if len(shape) > 1
+                                                                       else 1)]
+    A = (torch.stack(mats) if len(shape) > 1 else mats[0]).to(cuda)
+    G = torch.randn(A.shape, generator=torch.Generator().manual_seed(2),
+                    dtype=torch.float64).tril().to(cuda)
+    a = A.to(dtype).requires_grad_()
+    before = _build.launch_counts["chol_tile"]
+    L = tbc.cholesky_blocked(a)
+    (got,) = torch.autograd.grad(L, a, G.to(dtype))
+    assert _build.launch_counts["chol_tile"] > before
+    a64 = A.clone().requires_grad_()
+    (want,) = torch.autograd.grad(torch.linalg.cholesky(a64), a64, G)
+    tol = {torch.float32: 2e-2, torch.float64: 1e-8}[dtype]
+    assert float(torch.linalg.norm(got.double() - want) / torch.linalg.norm(want)) < tol
+    with pytest.raises(RuntimeError, match="autograd"):
+        tbc.chol_tile(a[..., :128, :128].contiguous())
 
 
 @pytest.mark.parametrize("dtype,rel,back", [(torch.float32, 3e-5, 1e-6),

@@ -70,12 +70,20 @@ def test_restarts_return_the_best_restart():
     assert torch.equal(best.u, runs[int(np.argmax(lmls))].u)
 
 
-@pytest.mark.parametrize("objective,slice_name", [("sgpr", "slice 4")])
-def test_unported_objectives_name_their_slice(objective, slice_name):
-    _, _, xt, yt = _data()
-    with pytest.raises(NotImplementedError, match=slice_name):
+def test_sgpr_objective_matches_jax():
+    x, y, xt, yt = _data(n=60)
+    z = np.linspace(-2.5, 2.5, 10)
+    opts = dict(num_steps=12, method="adam", learning_rate=0.05, objective="sgpr", inducing=z)
+    jres = jfit_mle(gpt.GaussianKernel(h=jnp.asarray(0.8), w=jnp.asarray(0.9)), x, y, 0.3,
+                    **opts)
+    tres = tmle.fit_mle(gpx.GaussianKernel(0.8, 0.9, dtype=torch.float64), xt, yt, 0.3,
+                        **{**opts, "inducing": torch.as_tensor(z)})
+    np.testing.assert_allclose(tres.losses.numpy(), np.asarray(jres.losses), rtol=1e-8)
+    np.testing.assert_allclose(tres.u.numpy(), np.asarray(jres.u), rtol=1e-8)
+    np.testing.assert_allclose(float(tres.log_marginal), float(jres.log_marginal), rtol=1e-8)
+    with pytest.raises(ValueError, match="requires inducing"):
         tmle.fit_mle(gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64), xt, yt, 0.1,
-                     objective=objective)
+                     objective="sgpr")
     with pytest.raises(ValueError, match="unknown method"):
         tmle.fit_mle(gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64), xt, yt, 0.1,
                      method="sgd")
