@@ -40,7 +40,8 @@
    over 8 dimensions: ``fit_iterative`` at N=65536 and the exact fit at
    N=16384; five Adam steps of ``fit_mle_iterative`` at N=16384), then
    through the CLI config #2 (periodic type-II MLE, 4 restarts) and config
-   #3 (64 chains at N=500) with ChEES and with NUTS, float32.  Then the
+   #3 (64 chains at N=500) with ChEES (cut to 250 + 250) and with NUTS (150 +
+   150), float32.  Then the
    families and trees ported after SE and periodic: the exact path for
    Matérn 3/2, Matérn 5/2 and RQ (fit + predict at N=16384, gradient and
    chunked Hessian at N=4096 in float32 and float64); the matrix-free path
@@ -55,7 +56,8 @@
    (B1's grid column, B2a's Jacobian columns); the Whittle posteriors'
    value and gradient at N=2^20 (SE for 1 and 16 chains, the quasi-periodic
    spectrum) and on a 1024^2 torus; ChEES on the Whittle posterior at 2^20
-   with benchmarks/demo_bayes1m.py's settings and through the CLI's
+   with benchmarks/demo_bayes1m.py's settings (cut to 150 + 150) and through
+   the CLI's
    grid1m_bayes_whittle; bench.py's SKI fit at N=65536 (twice) and its N-D
    SKI fit with one round of ``ski_kron_refine``.  Then slice 4: config
    sparse1m_sgpr through the CLI (N=2^20, m=1024 k-means centres) and
@@ -63,13 +65,30 @@
    value and gradient in theta, noise and z at N=65536, m=512, through B1's
    autograd rule (B2a in its backward), 10 Adam steps of
    ``fit_mle(objective="sgpr")``, the 8-chain value and gradient of
-   ``make_log_posterior_sgpr`` and a 16-chain ChEES run on it
+   ``make_log_posterior_sgpr`` and a 16-chain 60 + 60 ChEES run on it
    (``sgpr-grad``); ``fit_laplace`` logistic and Poisson at n=4096 in
    float32 and float64 with the evidence's gradient through the blocked
    factor's autograd rule and 5 Adam steps of ``fit_laplace_mle``
    (``laplace``); the dense pathwise sampler on config #1's fit at N=16384
    and the iterative one on the matrix-free SE workload (``pathwise``);
-   bench.py's RFF fit at N=2^20, F=2048 (``rff``, no hand kernel).
+   bench.py's RFF fit at N=2^20, F=2048 (``rff``, no hand kernel).  Then
+   slice 5 over an NCCL process group of one rank (``initialize_cluster``
+   with a local address): config #5 through the CLI's nuts_multihost task,
+   1024 chains at N=500, its depth cut to 150 + 100 in chunks of 50 with
+   every rank's state written to its checkpoint file and read back between
+   chunks, and a 128-chain 10 + 10 run so chunked against one pass
+   (``multihost-chains``: B1, B2a over the (1024, 3) table, B3 on
+   (1024, 128, 128) stacks); the unsharded twins (``row-twins``:
+   ``fit_iterative`` on B4 and on B1's strips, ``fit_sgpr``, the iterative
+   log posterior on B4 and B5), then, counted on their own,
+   ``fit_iterative_sharded`` on the matrix-free SE workload with B1's
+   (n / W, 1024) strips, ``fit_sgpr_sharded`` on sparse1m_sgpr's data, and
+   the data-sharded log posterior's value and gradient at N=16384, each
+   held against its twin (``row-sharded``), and that log posterior with one
+   strip of its matvec or of its Jacobian dropped, which its limits must
+   catch.
+   Slice 5's kernel shapes (the 1024-chain table and stacks, the row
+   strip) are held against their plain versions and timed beforehand.
    Requires every kernel of a path to have launched in that path's run.
 5. Checks the results against independent plain float64 computations on the
    card (pairwise twins + torch.linalg): true residuals of the iterative
@@ -95,7 +114,12 @@
    against the plain float64 version's autograd, no kernel), the SGPR
    bound below a dense float64 lml and equal to it with z = x on a grid,
    the pathwise draws' moments against the float64 posterior within
-   Monte-Carlo error and every Matheron solve's true residual.
+   Monte-Carlo error and every Matheron solve's true residual; config #5's
+   posterior means against the float64 quadrature of config #3's posterior
+   with R-hat and divergences, its resume bit for bit; the row-sharded
+   solve's alpha against fit_iterative's and its true residual, the sharded
+   SGPR bound against fit_sgpr's, the data-sharded log posterior against
+   the unsharded one.
 6. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check makes the script exit non-zero without the final line.
@@ -208,11 +232,18 @@ CHEES_RHAT = 1.01
 CHEES_ACCEPT = (0.55, 0.99)
 NUTS_DIVERGENT = 0.01
 # NUTS: 500 warmup + 1000 draws took 106 and 154 s on the card (the same
-# draws; the host sets the wall), against the 120 s allowed here, so the
-# run is cut to 200 + 300 draws with the looser R-hat limit (the full run
-# goes through the CLI by hand; PERF.md)
-NUTS_WARMUP, NUTS_SAMPLES = 200, 300
+# draws; the host sets the wall), so the run is cut, first to 200 + 300 and
+# then to 150 + 150 (the shortest warmup with a mass-matrix window) to make
+# room for config #5, with the looser R-hat limit (split R-hat runs near
+# 1 + (tau - 1) / (2 n) for n draws a half-chain: the 200 + 300 run's
+# tau ~ 4.6 gives ~1.024 at 150 draws; the full run goes through the CLI
+# by hand; PERF.md)
+NUTS_WARMUP, NUTS_SAMPLES = 150, 150
 NUTS_RHAT = 1.01 if NUTS_SAMPLES == 1000 else 1.05
+# ChEES: cut from 500 + 1000 (117.6 s on the card) to 500 + 500 and then to
+# 250 + 250 to make room for config #5's 1024 chains (tau ~ 1.3 at 500 +
+# 500: R-hat ~1.001 at 250 draws); its gates stay (PERF.md)
+CHEES_WARMUP, CHEES_SAMPLES = 250, 250
 
 # the least time the card could take for a kernel's work: the larger of its
 # operations over the float32 peak outside the tensor cores and its bytes
@@ -397,6 +428,20 @@ KERNEL_ROWS = [
     ("B2a pairwise dK/dtheta, SGPR backward (P x m x b)", "pairwise_jac",
      "pairwise_jac_sgpr_backward", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
      "gaussian_processes_tpu/ops/pairwise.py:270", ("sgpr-grad",)),
+    # slice 5: config #5's 1024-chain tables and stacks, and one rank's
+    # (n / W, block) row strips of the row-sharded matvec
+    ("B1 pairwise K over a chain table, 1024 chains", "pairwise_k_chains",
+     "pairwise_k_chains_1024", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:88", ("multihost-chains",)),
+    ("B2a pairwise dK/dtheta over a chain table, 1024 chains", "pairwise_jac_chains",
+     "pairwise_jac_chains_1024", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:270", ("multihost-chains",)),
+    ("B3 Cholesky tile with its inverse on 1024-chain stacks", "chol_tile",
+     "chol_tile_inv_chains_1024", "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
+     "gaussian_processes_tpu/ops/blocked_cholesky.py:83", ("multihost-chains",)),
+    ("B1 pairwise K, row strip (n/W x block, no diagonal)", "pairwise_k", "pairwise_k_row_strip",
+     "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88",
+     ("row-sharded",)),
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD
@@ -439,6 +484,13 @@ PATH_KERNELS = {
     "laplace": ("pairwise_k", "pairwise_jac", "chol_tile"),
     "pathwise": ("pairwise_k", "chol_tile", "kernel_matvec"),
     "rff": (),
+    # slice 5: config #5's leapfrogs over the 1024-chain table and stacks;
+    # the unsharded twins of the row-sharded calls (B4, B5, and B1's strips
+    # and pivot rows), then the row-sharded calls alone: their strips and
+    # pivot rows (B1) and the data-sharded gradient's Jacobian strips (B2a)
+    "multihost-chains": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
+    "row-twins": ("pairwise_k", "kernel_matvec", "kernel_jacvec"),
+    "row-sharded": ("pairwise_k", "pairwise_jac"),
 }
 
 
@@ -1436,16 +1488,19 @@ def check_chain_kernels(check, dev, rows):
 def run_sampler_path(dev, path) -> dict:
     """Phase 4, MLE and the samplers through the CLI as a user runs them:
     config #2 (periodic MLE, 4 restarts) and config #3 (64 chains, N = 500,
-    ChEES in full, NUTS with NUTS_WARMUP + NUTS_SAMPLES), float32."""
+    ChEES with CHEES_WARMUP + CHEES_SAMPLES, NUTS with NUTS_WARMUP +
+    NUTS_SAMPLES), float32."""
     from gaussian_processes_tpu_torch import cli
     from gaussian_processes_tpu_torch.utils import CONFIGS
 
     if path == "mle":
         return cli.run_config(CONFIGS["config2_mle_periodic"], device=dev)
     cfg = CONFIGS[f"config3_{path}_64"]
-    if path == "nuts":
-        cfg = dataclasses.replace(cfg, nuts=dataclasses.replace(
-            cfg.nuts, num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES))
+    warmup, samples = (NUTS_WARMUP, NUTS_SAMPLES) if path == "nuts" else (CHEES_WARMUP,
+                                                                         CHEES_SAMPLES)
+    print(f"config #3 {path}: {warmup} + {samples} of 500 + 1000", flush=True)
+    cfg = dataclasses.replace(cfg, nuts=dataclasses.replace(
+        cfg.nuts, num_warmup=warmup, num_samples=samples))
     return cli.run_config(cfg, device=dev)
 
 
@@ -2168,7 +2223,10 @@ WHITTLE_VALUE_NATS, WHITTLE_GRAD_REL = 0.5, 1e-3
 # committed reference draws (13,000 x 16 ChEES draws of u = log(h, w, s))
 BAYES_REF = "benchmarks/bayes1m_r5_accept.npz"
 BAYES_PRIOR_A, BAYES_PRIOR_B = (0.7, 0.04, 0.1), (1.0, 0.006, 0.1)
-BAYES_WARMUP, BAYES_SAMPLES, BAYES_RHAT, BAYES_SE = 400, 400, 1.05, 4.0
+# (a) is cut from the demo's 400 + 400 (36.0 s) to 200 + 200 and then to
+# 150 + 150 (a mass-matrix window stays) to make room for config #5; its
+# gates stay
+BAYES_WARMUP, BAYES_SAMPLES, BAYES_RHAT, BAYES_SE = 150, 150, 1.05, 4.0
 # the float64 Whittle posterior on the card by a product grid over u, this
 # many points per axis within this many of (a)'s posterior standard
 # deviations of (a)'s mean; the mass left on the grid's faces is printed
@@ -2973,11 +3031,12 @@ SGPR_DENSE_N, SGPR_EXACT_N, SGPR_EXACT_REL = 16384, 1024, 1e-8
 # chains run on u = u* + L z, u* the L-BFGS optimum of the bound and L L^T
 # the Laplace covariance there (a fixed dense mass matrix: a warmup under
 # 150 steps adapts none, and the posterior's scales span 20x), from z ~
-# N(0, I); 80 + 80 with up to 8 leapfrogs a transition.  Cut from 100 + 100
+# N(0, I); 60 + 60 with up to 8 leapfrogs a transition.  Cut from 100 + 100
 # with up to 32 in the identity frame, which ran 806 s on an H100 80GB HBM3
-# at 700 W (PERF.md): the 16 chains evaluate one after another
+# at 700 W (PERF.md): the 16 chains evaluate one after another; then from
+# 80 + 80 (60.8 s) to make room for config #5 (tau ~ 1.8: R-hat ~1.013)
 SGPR_GRAD_N, SGPR_GRAD_M, SGPR_MLE_STEPS, SGPR_POST_CHAINS = 65536, 512, 10, 8
-SGPR_CHEES = dict(chains=16, n=16384, m=128, warmup=80, samples=80, max_leapfrog=8,
+SGPR_CHEES = dict(chains=16, n=16384, m=128, warmup=60, samples=60, max_leapfrog=8,
                   spread=1.0)
 SGPR_CHEES_RHAT = 1.05
 # Laplace at n = 4096 (the unrolled factorizations' autograd graph is ~6 GB
@@ -3571,6 +3630,346 @@ def check_slice4_paths(check, runs, dev) -> dict:
             "rff": check_rff_path(check, runs.pop("rff"))}
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the multi-device layer over torch.distributed, run over an NCCL
+# process group of one rank (every collective runs; the machine has one card)
+
+# config #5 (BASELINE.json:11; utils/config.py: 1024 chains, N = 500, config
+# #3's data and prior) through the CLI's nuts_multihost task, cut in depth
+# only from 500 + 1000 to C5_WARMUP + C5_SAMPLES (150: the shortest warmup
+# whose schedule has a mass-matrix window; 100 + 100, step size alone, took
+# 279 s and left split R-hat at 1.072, PERF.md), host chunks of C5_CHUNK
+# with every rank's state written to its checkpoint file and read back
+# between them; the posterior means within C5_SE Monte-Carlo standard errors
+# of the float64 quadrature of config #3's posterior, split R-hat below
+# C5_RHAT (the cut run's limit, as NUTS_RHAT), divergences below
+# NUTS_DIVERGENT.  The cut holds R-hat: split R-hat runs near
+# 1 + (tau - 1) / (2 n) for n draws a half-chain, and tau ~ 5.2 (ESS 19526
+# of 102400 draws) gives 1.042 at 100 samples (read: 1.040) and ~1.08 at
+# 50.  Resume: C5_RESUME's chains and steps, chunked through the
+# checkpoints against one unchunked run, bit for bit
+CONFIG5_CHAINS = 1024
+C5_WARMUP, C5_SAMPLES, C5_CHUNK, C5_SE, C5_RHAT = 150, 100, 50, 4.0, 1.05
+C5_RESUME = dict(n_chains=128, num_warmup=10, num_samples=10, chunk_size=5)
+# the row-sharded paths at W = 1: fit_iterative_sharded on the matrix-free
+# SE workload (ITER_OPTS with B1's strips at the JAX package's block 1024)
+# against fit_iterative on the same product (impl="strip") and draws, with
+# fit_iterative on B4 timed beside it (B4's round-off moves alpha by ~2e-4
+# relative at this residual, PERF.md); fit_sgpr_sharded on config
+# sparse1m_sgpr's data against fit_sgpr (the same sweep: equal at W = 1 up
+# to the sum's order); the data-sharded log posterior's value and gradient
+# at ROW_BAYES_N against make_log_posterior_iterative (B4, B5) on the same
+# frozen probes, float32 (the two differ by the products' round-off).  The
+# twins run first, as a path of their own, so that the row-sharded path's
+# launch counts are the sharded calls' alone.  The data-sharded limits sit
+# a few times over the card's readings (value 1.422e-6 and gradient
+# 1.149e-4 relative, the same in three runs on an H100, PERF.md) and below
+# what a planted fault gives: the same log posterior with the last column
+# strip of its sharded matvec, or of its Jacobian, dropped
+ROW_BLOCK, ROW_ALPHA_REL, ROW_SGPR_REL = 1024, 1e-4, 1e-6
+ROW_BAYES_N, ROW_BAYES_OPTS = 16384, dict(num_probes=8, num_iters=100, tol=1e-6,
+                                          jitter=ITER_JITTER, precond_rank=512)
+ROW_BAYES_VALUE_REL, ROW_BAYES_GRAD_REL = 5e-6, 5e-4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_slice5_kernels(check, dev, rows):
+    """The shapes slice 5 brings: B1 and B2a over config #5's (1024, 3) SE
+    chain table at N = 500, B3 on (1024, 128, 128) stacks with inverses, and
+    B1 on one rank's (n / W, block) row strip at W = 1, N = 65536, block
+    1024; float32 and float64 against the plain versions, float32 timed."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    C, n = CONFIG5_CHAINS, CHAIN_N
+    n2 = n * n
+    print(f"slice 5's kernel shapes: {C} chains at N={n}, a {ITER_N} x {ROW_BLOCK} row strip:",
+          flush=True)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        timed = dtype == torch.float32
+        x, template, theta = chain_problem(dev, dtype, "se", chains=C)
+        P = template.n_params
+        params, diag = theta[:, :P], theta[:, P] ** 2 + 1e-6
+        for key, kern, plain, work in (
+                ("pairwise_k_chains_1024",
+                 lambda: pw.pairwise_matrix_chains(template, x, params, diag),
+                 lambda: pw.pairwise_matrix_chains_folded(template, x, params, diag),
+                 (C * (SE_K_OPS * n2 + n), 4 * (n + C * (P + 1) + C * n2))),
+                ("pairwise_jac_chains_1024",
+                 lambda: pw.pairwise_jacobian_chains(template, x, params),
+                 lambda: pw.pairwise_jacobian_chains_reference(template, x, params),
+                 (C * SE_JAC_OPS * n2, 4 * (n + C * P + C * P * n2)))):
+            err, v = plane_violation(kern(), plain(), dname)
+            check(f"{key} {dname} vs plain", v, 1.0)
+            if timed:
+                rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 10),
+                             "plain_ms": time_ms(plain, 5), "library_ms": None, **bound(*work)}
+        K = pw.pairwise_matrix_chains(template, x, params, diag)
+        tiles = K[:, :128, :128].contiguous()
+        del K
+        (got, got_inv), (want, want_inv) = bc.chol_tile_inv(tiles), bc.chol_tile_inv_reference(tiles)
+        check(f"B3 {C}-chain stack {dname}: backward", backward(got, tiles), CHOL_BACKWARD_TOL[dname])
+        eyes = torch.eye(128, dtype=torch.float64, device=dev).expand(C, 128, 128)
+        ratio = (rel_fro(got_inv.double() @ got.double(), eyes)
+                 / rel_fro(want_inv.double() @ want.double(), eyes))
+        check(f"B3 {C}-chain stack {dname}: ||L^-1 L - I|| / the plain inverse's", ratio,
+              BLOCKED_BACKWARD_RATIO)
+        if timed:
+            eye = torch.eye(128, dtype=dtype, device=dev)
+            rows["chol_tile_inv_chains_1024"] = {
+                "max_abs_err": float(torch.stack((got - want, got_inv - want_inv)).abs().max()),
+                "ms": time_ms(lambda: bc.chol_tile_inv(tiles), 20),
+                "plain_ms": time_ms(lambda: bc.chol_tile_inv_reference(tiles), 20),
+                "library_ms": time_ms(lambda: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky_ex(tiles)[0], eye, upper=False), 20),
+                **bound(C * 2 * 128 ** 3 / 3, 4 * 3 * C * 128 * 128)}
+        del tiles, got, got_inv, want, want_inv
+        xs, _, k = sine_problem(ITER_N, dev, dname)
+        cols = xs[:ROW_BLOCK].contiguous()
+        kern = lambda: pw.pairwise_matrix(k, xs, cols)  # noqa: E731
+        plain = lambda: pw.pairwise_matrix_folded(k, xs, cols)  # noqa: E731
+        err, v = plane_violation(kern(), plain(), dname)
+        check(f"B1 row strip {ITER_N}x{ROW_BLOCK} {dname} vs plain", v, 1.0)
+        if timed:
+            nb = ITER_N * ROW_BLOCK
+            rows["pairwise_k_row_strip"] = {
+                "max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
+                "library_ms": None, **bound(SE_K_OPS * nb, 4 * (ITER_N + ROW_BLOCK + nb))}
+        torch.cuda.empty_cache()
+    for key in ("pairwise_k_chains_1024", "pairwise_jac_chains_1024", "chol_tile_inv_chains_1024",
+                "pairwise_k_row_strip"):
+        r = rows[key]
+        print(f"  {key}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})" + (f", library {r['library_ms']:.4f}" if r["library_ms"]
+                                      else "") + f", max_abs_err {r['max_abs_err']:.3e}",
+              flush=True)
+
+
+def run_multihost_path(dev) -> dict:
+    """Config #5 through the CLI's nuts_multihost task (depth cut, chains
+    and N in full, checkpoints between the chunks), then the resume check:
+    C5_RESUME's run chunked through the checkpoints against one pass."""
+    import tempfile
+
+    import torch
+    from gaussian_processes_tpu_torch import cli, parallel
+    from gaussian_processes_tpu_torch.utils import CONFIGS
+
+    cfg = CONFIGS["config5_nuts_sharded"]
+    cfg = dataclasses.replace(cfg, nuts=dataclasses.replace(
+        cfg.nuts, num_warmup=C5_WARMUP, num_samples=C5_SAMPLES, chunk_size=C5_CHUNK))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = cli.run_config(cfg, device=dev, checkpoint=f"{tmp}/config5.npz")
+        small = dataclasses.replace(cfg, nuts=dataclasses.replace(cfg.nuts, **C5_RESUME))
+        x, y, _, kernel, dtype = cli.load_problem(small, dev)
+        ncfg = small.nuts
+        mesh = parallel.make_chain_mesh(device=dev)
+        runs = []
+        for chunk, ckpt in ((None, None), (ncfg.chunk_size, f"{tmp}/resume.npz")):
+            log_post, init, gen = cli.sampler_setup(small, kernel, x, y, dev, dtype)
+            runs.append(parallel.sample_nuts_sharded(
+                log_post, init, gen, mesh=mesh, num_warmup=ncfg.num_warmup,
+                num_samples=ncfg.num_samples, chunk_size=chunk, checkpoint=ckpt,
+                max_depth=ncfg.max_depth, target_accept=ncfg.target_accept,
+                init_step_size=ncfg.init_step_size))
+    out["resume_equal"] = all(torch.equal(a, b) for a, b in zip(runs[0][:7], runs[1][:7]))
+    out["resume_shape"] = tuple(runs[0].positions.shape)
+    return out
+
+
+def check_multihost_path(check, out, exact) -> dict:
+    """Config #5's draws against the float64 quadrature of config #3's
+    posterior (``posterior_means_f64``), R-hat and divergences; the resume
+    bit for bit."""
+    s = out["cli"]
+    d = s["diagnostics"]
+    print(f"config #5 (nuts_multihost, {s['n_chains']} chains, {C5_WARMUP} + {C5_SAMPLES} of "
+          f"500 + 1000, chunks of {C5_CHUNK} through the checkpoints): {s['wall_s']:.2f} s, "
+          f"{s['samples_per_s']:.1f} samples/s with warmup, {d['ess_per_s']:.1f} ESS/s (min ESS "
+          f"{d['min_ess']:.0f}), mean leapfrog {s['mean_leapfrog']:.2f}, step "
+          f"{s['step_size']:.4f}, accept {s['accept_rate']:.3f}, divergent "
+          f"{s['divergence_frac']:.4f}, max R-hat {d['max_rhat']:.4f}, peak memory "
+          f"{s['peak_memory_gb']:.2f} GB, mean {[round(m, 4) for m in s['posterior_mean']]} +- "
+          f"{[round(e, 4) for e in s['posterior_mean_se']]} (quadrature "
+          f"{[round(m, 4) for m in exact]})", flush=True)
+    check("config #5 draws finite (0 = yes)", 0.0 if s["draws_finite"] else 1.0, 0.0)
+    check("config #5 max split R-hat", d["max_rhat"], C5_RHAT)
+    check("config #5 divergent fraction", s["divergence_frac"], NUTS_DIVERGENT)
+    for i, name in enumerate(("h", "w", "s")):
+        check(f"config #5 mean {name}: |mean - quadrature| / MC standard error",
+              abs(s["posterior_mean"][i] - exact[i]) / s["posterior_mean_se"][i], C5_SE)
+    check(f"config #5 resume at {out['resume_shape']}: chunked through checkpoints equals one "
+          "pass bit for bit (0 = yes)", 0.0 if out["resume_equal"] else 1.0, 0.0)
+    summary = {key: s[key] for key in (
+        "wall_s", "samples_per_s", "accept_rate", "divergence_frac", "mean_leapfrog",
+        "step_size", "posterior_mean", "posterior_mean_se", "n_samples", "n_chains",
+        "peak_memory_gb")}
+    summary.update(max_rhat=d["max_rhat"], min_ess=d["min_ess"], ess_per_s=d["ess_per_s"],
+                   warmup=C5_WARMUP, resume_equal=out["resume_equal"])
+    return summary
+
+
+def run_row_twins_path(dev) -> dict:
+    """The unsharded twins of the row-sharded calls, each timed on the host
+    clock, synchronized; their inputs are kept for the row-sharded path."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.inference import make_log_posterior_iterative, pack
+    from gaussian_processes_tpu_torch.utils import CONFIGS
+
+    out = {}
+    x, y, k = sine_problem(ITER_N, dev)
+    opts = dict(ITER_OPTS, block_size=ROW_BLOCK)
+    for key, fn in (("fit_b4", lambda: gpx.fit_iterative(k, x, y, ITER_NOISE, seed(20), **opts)),
+                    ("fit", lambda: gpx.fit_iterative(k, x, y, ITER_NOISE, seed(20),
+                                                      impl="strip", **opts))):
+        out[key], out[f"{key}_wall_s"] = synced_wall(fn)
+    out["se"] = (x, y, k)
+
+    xs, ys, _ = sgpr_config_data(dev)
+    z = gpx.kmeans_inducing(seed(CONFIGS["sparse1m_sgpr"].data.seed), xs, SGPR_M, iters=5)
+    ks = gpx.GaussianKernel(1.0, 0.006, dtype=torch.float32, device=dev)
+    gpx.fit_sgpr(ks, xs, ys, 0.1, z)
+    out["sgpr"], out["sgpr_wall_s"] = synced_wall(lambda: gpx.fit_sgpr(ks, xs, ys, 0.1, z))
+    out["sgpr_data"] = (xs, ys, z, ks)
+
+    xb, yb, kb = sine_problem(ROW_BAYES_N, dev)
+    u = pack(kb, ITER_NOISE).expand(2, 3) + torch.tensor(
+        [[0.0, 0.0, 0.0], [0.1, -0.1, 0.05]], device=dev)
+    lp = make_log_posterior_iterative(kb, xb, yb, probe_generator=seed(21), **ROW_BAYES_OPTS)
+    lp.value_and_grad(u)  # the first call draws the probes and builds
+    out["bayes"], out["bayes_wall_s"] = synced_wall(lambda: lp.value_and_grad(u))
+    out["bayes_data"] = (xb, yb, kb, u)
+    return out
+
+
+def datasharded_log_posterior(twins, mesh):
+    from gaussian_processes_tpu_torch import parallel
+
+    xb, yb, kb, _ = twins["bayes_data"]
+    return parallel.make_log_posterior_iterative_datasharded(
+        kb, xb, yb, mesh, probe_generator=seed(21), block_size=ROW_BLOCK, **ROW_BAYES_OPTS)
+
+
+def run_row_sharded_path(dev, twins) -> dict:
+    """The row-sharded calls at W = 1 on their twins' data and draws, each
+    timed on the host clock, synchronized."""
+    from gaussian_processes_tpu_torch import parallel
+
+    mesh = parallel.make_row_mesh(device=dev)
+    out = {"mesh": mesh}
+    x, y, k = twins["se"]
+    out["fit_sharded"], out["fit_sharded_wall_s"] = synced_wall(
+        lambda: parallel.fit_iterative_sharded(k, x, y, ITER_NOISE, seed(20), mesh=mesh,
+                                               **dict(ITER_OPTS, block_size=ROW_BLOCK)))
+    xs, ys, z, ks = twins["sgpr_data"]
+    fn = lambda: parallel.fit_sgpr_sharded(ks, xs, ys, 0.1, z, mesh=mesh)  # noqa: E731
+    fn()
+    out["sgpr_sharded"], out["sgpr_sharded_wall_s"] = synced_wall(fn)
+    u = twins["bayes_data"][3]
+    lp = datasharded_log_posterior(twins, mesh)
+    lp.value_and_grad(u)  # the first call draws the probes and builds
+    out["bayes_sharded"], out["bayes_sharded_wall_s"] = synced_wall(lambda: lp.value_and_grad(u))
+    return out
+
+
+def planted_faults(twins, mesh) -> dict:
+    """The data-sharded log posterior's value and gradient at the first
+    position with one strip dropped: the last column block of the sharded
+    matvec's strip product, or of the Jacobian strips (B2a) that its
+    gradient sums.  Run after the paths' counted windows."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import krylov
+
+    xb, _, kb, u = twins["bayes_data"]
+    u = u[:1]
+    matvec, jacobian = krylov.kernel_matvec, type(kb).jacobian
+    last = xb[-ROW_BLOCK:].data_ptr()
+
+    def matvec_without_last_strip(kernel, x, v, *args, **kwargs):
+        v = v.clone()
+        v[-ROW_BLOCK:] = 0
+        return matvec(kernel, x, v, *args, **kwargs)
+
+    def jacobian_without_last_strip(self, x1, x2):
+        J = jacobian(self, x1, x2)
+        return torch.zeros_like(J) if x2.data_ptr() == last else J
+
+    out = {}
+    for key, module, name, fault in (
+            ("matvec", krylov, "kernel_matvec", matvec_without_last_strip),
+            ("jacobian", type(kb), "jacobian", jacobian_without_last_strip)):
+        with _swap(module, name, fault):
+            out[key] = datasharded_log_posterior(twins, mesh).value_and_grad(u)
+    return out
+
+
+def check_row_sharded_path(check, twins, out) -> dict:
+    import torch
+
+    x, y, k = twins["se"]
+    a, b = twins["fit"].alpha, out["fit_sharded"].alpha
+    alpha_rel = float(torch.linalg.norm(b - a) / torch.linalg.norm(a))
+    res = true_residual(k, x, y, b)
+    b4_rel = float(torch.linalg.norm(b - twins["fit_b4"].alpha) / torch.linalg.norm(a))
+    print(f"row-sharded at W=1: fit_iterative_sharded {out['fit_sharded_wall_s']:.3f} s (strips "
+          f"of {ROW_BLOCK}) vs fit_iterative {twins['fit_wall_s']:.3f} s on the same strips and "
+          f"{twins['fit_b4_wall_s']:.3f} s on B4; alpha rel {alpha_rel:.3e} ({b4_rel:.3e} from "
+          f"B4's), true residual {res:.3e}, lml {float(out['fit_sharded'].log_marginal):.3f} vs "
+          f"{float(twins['fit'].log_marginal):.3f}", flush=True)
+    check("row-sharded fit: ||alpha - fit_iterative's|| / ||alpha||", alpha_rel, ROW_ALPHA_REL)
+    check("row-sharded fit: true residual (float64 matvec)", res, ITER_RESIDUAL)
+    e, es = float(twins["sgpr"].log_marginal), float(out["sgpr_sharded"].log_marginal)
+    sgpr_rel = abs(es - e) / abs(e)
+    print(f"  fit_sgpr_sharded {out['sgpr_sharded_wall_s']:.4f} s vs fit_sgpr "
+          f"{twins['sgpr_wall_s']:.4f} s at N={SGPR_N}, m={SGPR_M}: bound {es:.6f} vs {e:.6f} "
+          f"(rel {sgpr_rel:.3e})", flush=True)
+    check("row-sharded SGPR bound vs fit_sgpr (relative)", sgpr_rel, ROW_SGPR_REL)
+    (v, g), (vs, gs) = twins["bayes"], out["bayes_sharded"]
+
+    def rels(value, grad):
+        r = (float((value - v[:len(value)]).abs().max() / v.abs().max()),
+             float((grad - g[:len(grad)]).abs().max() / g.abs().max()))
+        return tuple(e if math.isfinite(e) else math.inf for e in r)
+
+    value_rel, grad_rel = rels(vs, gs)
+    print(f"  data-sharded log posterior at N={ROW_BAYES_N}, 2 chains: "
+          f"{out['bayes_sharded_wall_s']:.3f} s vs make_log_posterior_iterative "
+          f"{twins['bayes_wall_s']:.3f} s; value rel {value_rel:.3e}, gradient rel {grad_rel:.3e}",
+          flush=True)
+    check("data-sharded log posterior value vs unsharded (relative)", value_rel,
+          ROW_BAYES_VALUE_REL)
+    check("data-sharded log posterior gradient vs unsharded (relative to its max)", grad_rel,
+          ROW_BAYES_GRAD_REL)
+    faults = {key: rels(*vg) for key, vg in planted_faults(twins, out["mesh"]).items()}
+    print(f"  planted faults (value rel, gradient rel): matvec's last strip dropped "
+          f"{faults['matvec'][0]:.3e}, {faults['matvec'][1]:.3e}; Jacobian's last strip dropped "
+          f"{faults['jacobian'][0]:.3e}, {faults['jacobian'][1]:.3e}", flush=True)
+    check("planted fault, matvec strip dropped: value limit / its value rel (< 1: caught)",
+          ROW_BAYES_VALUE_REL / faults["matvec"][0], 1.0)
+    check("planted fault, Jacobian strip dropped: gradient limit / its gradient rel (< 1: caught)",
+          ROW_BAYES_GRAD_REL / faults["jacobian"][1], 1.0)
+    return {"fit_wall_s": twins["fit_wall_s"], "fit_sharded_wall_s": out["fit_sharded_wall_s"],
+            "fit_b4_wall_s": twins["fit_b4_wall_s"], "alpha_rel": alpha_rel,
+            "alpha_rel_b4": b4_rel, "true_residual": res,
+            "sgpr_wall_s": twins["sgpr_wall_s"],
+            "sgpr_sharded_wall_s": out["sgpr_sharded_wall_s"], "sgpr_rel": sgpr_rel,
+            "bayes_wall_s": twins["bayes_wall_s"],
+            "bayes_sharded_wall_s": out["bayes_sharded_wall_s"], "bayes_value_rel": value_rel,
+            "bayes_grad_rel": grad_rel, "fault_matvec_rel": faults["matvec"],
+            "fault_jacobian_rel": faults["jacobian"]}
+
+
 def main() -> int:
     import torch
 
@@ -3586,7 +3985,7 @@ def main() -> int:
     from gaussian_processes_tpu_torch.utils import CONFIGS
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     lib = _build.build()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -3605,6 +4004,17 @@ def main() -> int:
     check_new_kernels_at_slice(check, dev, slice_rows)
     check_chain_kernels(check, dev, slice_rows)
     check_slice4_kernels(check, dev, slice_rows)
+    check_slice5_kernels(check, dev, slice_rows)
+    print(f"kernel checks and timings done ({time.perf_counter() - t_start:.1f} s from the "
+          "start)", flush=True)
+
+    # slice 5's paths run over an NCCL process group of one rank
+    from gaussian_processes_tpu_torch import parallel
+
+    cluster = parallel.initialize_cluster(f"127.0.0.1:{free_port()}", 1, 0)
+    print(f"process group: {cluster}", flush=True)
+    check("an NCCL process group of one rank (0 = yes)",
+          0.0 if (cluster["backend"], cluster["process_count"]) == ("nccl", 1) else 1.0, 0.0)
 
     fit_cfg = CONFIGS["config1_fit_se500"].fit
     # each path runs with the counters at 0 and is read just after
@@ -3626,7 +4036,10 @@ def main() -> int:
                       ("bayes-grid", lambda: run_bayes_grid_path(dev)),
                       ("ski", lambda: run_ski_path(dev)),
                       ("ski-refine", lambda: run_ski_refine_path(dev)),
-                      *slice4_paths(dev)):
+                      *slice4_paths(dev),
+                      ("multihost-chains", lambda: run_multihost_path(dev)),
+                      ("row-twins", lambda: run_row_twins_path(dev)),
+                      ("row-sharded", lambda: run_row_sharded_path(dev, runs["row-twins"]))):
         t0 = time.perf_counter()
         _build.launch_counts.clear()
         runs[path] = run()
@@ -3637,6 +4050,7 @@ def main() -> int:
         for key in PATH_KERNELS[path]:
             check(f"{key} launched on the {path} path (0 = yes)",
                   0.0 if counts.get(key, 0) > 0 else 1.0, 0.0)
+    t_checks = time.perf_counter()
     out, iter_out = runs["exact"], runs["matrix-free"]
     check_main_path(check, out, fit_cfg.noise, fit_cfg.jitter)
     iter_summary = check_iterative_path(check, iter_out, dev)
@@ -3652,6 +4066,11 @@ def main() -> int:
               "bayes_grid": check_bayes_grid_path(check, runs.pop("bayes-grid")),
               "ski": check_ski_path(check, runs.pop("ski")),
               "ski_refine": check_ski_refine_path(check, runs.pop("ski-refine"))}
+    slice5 = {"config5": check_multihost_path(check, runs.pop("multihost-chains"),
+                                              sampler_summary["posterior_mean_quadrature"]),
+              "row_sharded": check_row_sharded_path(check, runs.pop("row-twins"),
+                                                    runs.pop("row-sharded"))}
+    parallel.shutdown_cluster()
     slice4 = check_slice4_paths(check, runs, dev)
 
     kernels = [
@@ -3662,6 +4081,8 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, key, row, source, replaces, *paths in KERNEL_ROWS
     ]
+    print(f"checks after the paths: {time.perf_counter() - t_checks:.1f} s; "
+          f"{time.perf_counter() - t_start:.1f} s from the start", flush=True)
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed: {check.failed}",
               file=sys.stderr)
@@ -3693,6 +4114,9 @@ def main() -> int:
         "iterative": iter_summary,
         "slice3": slice3,
         "slice4": slice4,
+        "slice5": slice5,
+        **{key: slice_rows[key] for key in ("pairwise_k_chains_1024", "pairwise_jac_chains_1024",
+                                            "chol_tile_inv_chains_1024", "pairwise_k_row_strip")},
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,8 @@ Usage:
     python -m gaussian_processes_tpu_torch.cli config4_large_n
     python -m gaussian_processes_tpu_torch.cli grid1m_bayes_whittle
     python -m gaussian_processes_tpu_torch.cli sparse1m_sgpr
+    python -m gaussian_processes_tpu_torch.cli config5_nuts_sharded
+    torchrun --nproc-per-node 4 -m gaussian_processes_tpu_torch.cli config5_nuts_sharded
     python -m gaussian_processes_tpu_torch.cli --list
 
 Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
@@ -19,9 +21,11 @@ Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
 JAX package runs its block-cyclic factorization over a mesh),
 ``bayes_grid`` (ChEES on the Whittle posterior of a uniform grid at
 N=2^20) and ``sgpr`` (the Titsias bound at N=2^20 scattered points with
-k-means inducing points); the multi-host sampler is listed and raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  Every task runs on ``cuda`` unless another device is
-asked for.  Each run emits JSONL metrics (utils/metrics.py) and an
+k-means inducing points) and ``nuts_multihost`` (config #5: NUTS with the
+chains split over the ranks of a process group, one card each, which
+``parallel.initialize_cluster`` brings up from the launcher's variables;
+one process is a group of one).  Every task runs on ``cuda`` unless another
+device is asked for.  Each run emits JSONL metrics (utils/metrics.py) and an
 end-of-run summary line; ``--profile-dir`` writes a ``torch.profiler``
 trace of the timed part.
 """
@@ -37,9 +41,7 @@ import numpy as np
 import torch
 
 #: tasks of the JAX package's CLI that the port does not run yet
-NOT_PORTED = {
-    "nuts_multihost": "slice 5 (multi-device)",
-}
+NOT_PORTED: dict = {}
 
 
 def _apply_overrides(cfg, args):
@@ -148,15 +150,9 @@ def _run_mle(cfg, kernel, x, y, device):
     }
 
 
-def _run_sampler(cfg, kernel, x, y, device, dtype):
-    from gaussian_processes_tpu_torch.inference import (
-        init_positions,
-        make_log_posterior,
-        sample_chees,
-        sample_nuts,
-    )
-    from gaussian_processes_tpu_torch.inference.diagnostics import ess, summarize
-    from gaussian_processes_tpu_torch.utils import summarize_nuts, trace
+def sampler_setup(cfg, kernel, x, y, device, dtype):
+    """The sampler tasks' (log posterior, initial positions, generator)."""
+    from gaussian_processes_tpu_torch.inference import init_positions, make_log_posterior
 
     ncfg = cfg.nuts
     if cfg.task == "bayes_grid":
@@ -178,10 +174,33 @@ def _run_sampler(cfg, kernel, x, y, device, dtype):
     generator = torch.Generator(device=device).manual_seed(ncfg.seed)
     init = init_positions(kernel, cfg.fit.noise, generator, n_chains=ncfg.n_chains,
                           spread=0.2, dtype=dtype)
+    return log_post, init, generator
+
+
+def _run_sampler(cfg, kernel, x, y, device, dtype, checkpoint=None):
+    from gaussian_processes_tpu_torch.inference import sample_chees, sample_nuts
+    from gaussian_processes_tpu_torch.inference.diagnostics import ess, summarize
+    from gaussian_processes_tpu_torch.utils import summarize_nuts, trace
+
+    ncfg = cfg.nuts
+    log_post, init, generator = sampler_setup(cfg, kernel, x, y, device, dtype)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     _synchronize(device)
     t0 = time.perf_counter()
     with trace(cfg.profile_dir):
-        if cfg.task in ("chees", "bayes_grid"):
+        if cfg.task == "nuts_multihost":
+            from gaussian_processes_tpu_torch.parallel import make_chain_mesh, sample_nuts_sharded
+
+            res = sample_nuts_sharded(
+                log_post, init, generator, mesh=make_chain_mesh(device=device),
+                num_warmup=ncfg.num_warmup, num_samples=ncfg.num_samples,
+                max_depth=ncfg.max_depth, target_accept=ncfg.target_accept,
+                init_step_size=ncfg.init_step_size,
+                # host chunks, each rank's state written to (and read back
+                # from) its own checkpoint file between them
+                chunk_size=ncfg.chunk_size, checkpoint=checkpoint)
+        elif cfg.task in ("chees", "bayes_grid"):
             res = sample_chees(log_post, init, generator, num_warmup=ncfg.num_warmup,
                                num_samples=ncfg.num_samples,
                                init_step_size=ncfg.init_step_size,
@@ -208,33 +227,48 @@ def _run_sampler(cfg, kernel, x, y, device, dtype):
         posterior_mean_se=(draws.std(0) / np.sqrt(ess(theta))).tolist(),
         diagnostics=summarize(positions, wall_s=wall),
     )
+    if device.type == "cuda":
+        summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     return summary
 
 
-def run_config(cfg, device="cuda") -> dict:
-    """Run one workload on ``device`` and return its summary."""
-    from gaussian_processes_tpu_torch.utils import (
-        MetricsLogger,
-        make_data,
-        make_kernel,
-        resolve_device,
-    )
+def load_problem(cfg, device):
+    """(x, y, xo, kernel, dtype) of a workload on ``device``."""
+    from gaussian_processes_tpu_torch.utils import make_data, make_kernel
+
+    dtype = getattr(torch, cfg.fit.dtype)
+    x, y, xo = make_data(cfg.data, dtype=cfg.fit.dtype)
+    x, y, xo = (torch.as_tensor(a, device=device) for a in (x, y, xo))
+    return x, y, xo, make_kernel(cfg.kernel, dtype=dtype, device=device), dtype
+
+
+def run_config(cfg, device="cuda", checkpoint: str | None = None) -> dict:
+    """Run one workload on ``device`` and return its summary.
+    ``checkpoint``: the base path of ``nuts_multihost``'s per-rank
+    checkpoints, written after every chunk."""
+    from gaussian_processes_tpu_torch.utils import MetricsLogger, resolve_device
 
     if cfg.task in NOT_PORTED:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP {NOT_PORTED[cfg.task]})"
         )
-    if cfg.task not in ("fit", "fit_large", "mle", "nuts", "chees", "bayes_grid", "sgpr"):
+    if cfg.task not in ("fit", "fit_large", "mle", "nuts", "chees", "bayes_grid", "sgpr",
+                        "nuts_multihost"):
         raise ValueError(f"unknown task {cfg.task!r}")
 
     device = resolve_device(device)
-    dtype = getattr(torch, cfg.fit.dtype)
+    if cfg.task == "nuts_multihost":
+        from gaussian_processes_tpu_torch.parallel import initialize_cluster
+        from gaussian_processes_tpu_torch.parallel.multihost import local_device
+
+        # a no-op unless a launcher configured a cluster; gloo for a CPU run
+        initialize_cluster(backend="gloo" if device.type == "cpu" else None)
+        if device.type == "cuda" and device.index is None:
+            device = local_device()  # this rank's card
     device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu")
     log = MetricsLogger(path=cfg.metrics_path)
-    x, y, xo = make_data(cfg.data, dtype=cfg.fit.dtype)
-    x, y, xo = (torch.as_tensor(a, device=device) for a in (x, y, xo))
-    kernel = make_kernel(cfg.kernel, dtype=dtype, device=device)
+    x, y, xo, kernel, dtype = load_problem(cfg, device)
     log.log("start", config=cfg.name, task=cfg.task, n=cfg.data.n,
             device=device_name, dtype=cfg.fit.dtype)
 
@@ -245,10 +279,13 @@ def run_config(cfg, device="cuda") -> dict:
     elif cfg.task == "sgpr":
         summary = _run_sgpr(cfg, kernel, x, y, xo, device)
     else:
-        summary = _run_sampler(cfg, kernel, x, y, device, dtype)
+        summary = _run_sampler(cfg, kernel, x, y, device, dtype, checkpoint)
     summary = {"device": device_name, **summary}
 
-    log.log("summary", config=cfg.name, **summary)
+    from gaussian_processes_tpu_torch.parallel import is_primary
+
+    if is_primary():  # one summary per run, not one per rank
+        log.log("summary", config=cfg.name, **summary)
     log.close()
     return summary
 
@@ -266,6 +303,8 @@ def main(argv=None):
     ap.add_argument("--num-samples", type=int, default=None, help="override the draws")
     ap.add_argument("--metrics", default=None, help="JSONL metrics file")
     ap.add_argument("--profile-dir", default=None, help="torch.profiler trace dir")
+    ap.add_argument("--checkpoint", default=None,
+                    help="nuts_multihost: base path of the per-rank checkpoints")
     args = ap.parse_args(argv)
 
     if args.list or not args.config:
@@ -278,7 +317,7 @@ def main(argv=None):
         print(f"unknown config {args.config!r}; use --list", file=sys.stderr)
         return 2
     cfg = _apply_overrides(CONFIGS[args.config], args)
-    run_config(cfg, device=args.device)
+    run_config(cfg, device=args.device, checkpoint=args.checkpoint)
     return 0
 
 

@@ -10,8 +10,8 @@ A kernel is named by its family and parameters, or by a spec: a leaf
 so that a JAX ``ProductKernel(GaussianKernel, PeriodicKernel)`` becomes
 ``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.  The structured
 operators (``KronOperator``, ``SKIOperator``, ``SKIKronOperator``), the
-Fourier feature maps and the SGPR and Laplace posteriors come from their
-arrays as well.
+Fourier feature maps, the SGPR and Laplace posteriors and the samplers'
+states (NUTS, ChEES, chain-sharded NUTS) come from their arrays as well.
 """
 
 from __future__ import annotations
@@ -167,3 +167,80 @@ def ski_kron_operator_from_numpy(axes, idx, w, *, device="cpu", dtype=torch.floa
 
     return SKIKronOperator(kron=kron_operator_from_numpy(axes, device=device, dtype=dtype),
                            idx=_tensor(idx, device, torch.int64), w=_tensor(w, device, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Sampler states (NUTS, ChEES; sharded or not)
+#
+# A sampler state travels as a flat dict of numpy arrays: the chain block
+# ``z``, ``logp``, ``grad``; the dual averaging ``da_log_step``,
+# ``da_log_avg_step``, ``da_avg_error``, ``da_count``, ``da_mu``; the Welford
+# moments ``welford_mean``, ``welford_m2``, ``welford_count``; ``inv_mass``,
+# ``step_size``; and for ChEES ``traj_length``, ``traj_m``, ``traj_v``,
+# ``traj_count``.  The JAX package's states carry PRNG keys, the port's
+# generators: the random stream does not cross, the caller supplies it.
+
+_CHEES_FIELDS = ("traj_length", "traj_m", "traj_v", "traj_count")
+
+
+def _sampler_parts(arrays, device, dtype):
+    from gaussian_processes_tpu_torch.inference import adaptation as adapt
+    from gaussian_processes_tpu_torch.inference.nuts import ChainState
+
+    def t(name):
+        return torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
+
+    return dict(
+        chains=ChainState(z=t("z"), logp=t("logp"), grad=t("grad")),
+        da=adapt.DualAveragingState(log_step=t("da_log_step"),
+                                    log_avg_step=t("da_log_avg_step"),
+                                    avg_error=t("da_avg_error"),
+                                    count=int(arrays["da_count"]), mu=t("da_mu")),
+        welford=adapt.WelfordState(mean=t("welford_mean"), m2=t("welford_m2"),
+                                   count=t("welford_count")),
+        inv_mass=t("inv_mass"), step_size=t("step_size"))
+
+
+def sampler_state_from_numpy(arrays, generator, *, sharded: bool = False, device="cpu",
+                             dtype=torch.float64):
+    """The port's NUTS ``SamplerState`` (``parallel.ShardedNUTSState`` when
+    ``sharded``) from the flat dict of arrays, drawing from ``generator``."""
+    from gaussian_processes_tpu_torch.inference.nuts import SamplerState
+    from gaussian_processes_tpu_torch.parallel.sharded import ShardedNUTSState
+
+    cls = ShardedNUTSState if sharded else SamplerState
+    return cls(**_sampler_parts(arrays, device, dtype), generator=generator)
+
+
+def chees_state_from_numpy(arrays, generator, momentum_generator=None, *, device="cpu",
+                           dtype=torch.float64):
+    """The port's ``CheesState`` from the flat dict of arrays; ``generator``
+    draws the jitter, ``momentum_generator`` (None: ``generator``) the
+    momenta, as in a chain-sharded run."""
+    from gaussian_processes_tpu_torch.inference.chees import CheesState
+
+    def t(name):
+        return torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
+
+    return CheesState(**_sampler_parts(arrays, device, dtype),
+                      traj_length=t("traj_length"), traj_m=t("traj_m"), traj_v=t("traj_v"),
+                      traj_count=int(arrays["traj_count"]), generator=generator,
+                      momentum_generator=momentum_generator)
+
+
+def sampler_state_to_numpy(state) -> dict:
+    """The flat dict of arrays of a port NUTS or ChEES state (its generators
+    left out): the inverse of the two functions above."""
+
+    def a(v):
+        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    out = {"z": a(state.chains.z), "logp": a(state.chains.logp), "grad": a(state.chains.grad),
+           "da_log_step": a(state.da.log_step), "da_log_avg_step": a(state.da.log_avg_step),
+           "da_avg_error": a(state.da.avg_error), "da_count": a(state.da.count),
+           "da_mu": a(state.da.mu), "welford_mean": a(state.welford.mean),
+           "welford_m2": a(state.welford.m2), "welford_count": a(state.welford.count),
+           "inv_mass": a(state.inv_mass), "step_size": a(state.step_size)}
+    if hasattr(state, "traj_length"):
+        out.update({name: a(getattr(state, name)) for name in _CHEES_FIELDS})
+    return out

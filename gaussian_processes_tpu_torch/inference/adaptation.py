@@ -185,18 +185,24 @@ def build_warmup_schedule(
     return {"in_slow": in_slow, "window_end": window_end, "last": last}
 
 
+def _identity(w):
+    return w
+
+
 def adapt_window(welford: WelfordState, da: DualAveragingState, inv_mass, chains_z,
-                 flags: dict, step: int):
+                 flags: dict, step: int, reduce_welford=_identity):
     """The mass-matrix half of one warmup step, shared by NUTS and ChEES
     (``warmup_step`` in nuts.py, ``chees_step`` in chees.py of the JAX
     package): fold the chains' positions into Welford inside a slow window;
-    at a window's end refresh the inverse mass from the pooled estimate,
-    reset the moments and restart dual averaging at the current step size.
+    at a window's end refresh the inverse mass from the pooled estimate
+    (``reduce_welford`` of the local moments: the identity on one process,
+    the exact merge across ranks in ``parallel/sharded.py``), reset the
+    moments and restart dual averaging at the current step size.
     Returns (welford, da, inv_mass)."""
     if flags["in_slow"][step]:
         welford = welford_update_batch(welford, chains_z)
     if flags["window_end"][step]:
-        inv_mass = welford_variance(welford)
+        inv_mass = welford_variance(reduce_welford(welford))
         welford = welford_init(inv_mass.shape[0], inv_mass.dtype, inv_mass.device)
         da = da_init(torch.exp(da.log_step))
     return welford, da, inv_mass

@@ -21,7 +21,10 @@ T at NaN and collapsed trajectories to one leapfrog).
 
 The loop over transitions runs on the host; the number of leapfrogs of a
 transition is read from the device once per transition.  Randomness comes
-from one ``torch.Generator`` in a fixed order.
+from one ``torch.Generator`` in a fixed order; a chain-sharded run
+(``parallel/sharded.py``) draws the trajectory jitter from a generator every
+rank shares and the momenta from its own (``CheesState.momentum_generator``),
+as the JAX package folds the device index into the momentum key only.
 
 CAVEAT (JAX package, measured): with a shared trajectory length, a chain in
 a mode much narrower than the bulk's can integrate whole oscillations per
@@ -41,11 +44,17 @@ import torch
 from gaussian_processes_tpu_torch.inference import adaptation as adapt
 from gaussian_processes_tpu_torch.inference.nuts import (
     ChainState,
+    _default_reduce_mean,
+    _default_reduce_welford,
     _draw,
     _kinetic,
     init_chain,
     value_and_grad_fn,
 )
+
+
+def _default_reduce_vec_mean(x):
+    return torch.mean(x, dim=0)
 
 
 class CheesInfo(NamedTuple):
@@ -68,6 +77,8 @@ class CheesState:
     traj_v: torch.Tensor  # Adam second moment for log T
     traj_count: int
     generator: torch.Generator | None
+    #: the momenta's and acceptances' own stream (None: ``generator``)
+    momentum_generator: torch.Generator | None = None
 
 
 class CheesResult(NamedTuple):
@@ -105,8 +116,10 @@ def _hmc_trajectory(vg, chains: ChainState, generator, eps, n_steps: int, inv_ma
     return new, z, inv_mass * r, accept_prob, ~finite
 
 
-def _chees_grad(z0, z1, v1, accept_prob, u_jitter):
-    """Stochastic gradient of the ChEES criterion wrt trajectory time.
+def _chees_grad(z0, z1, v1, accept_prob, u_jitter, reduce_mean=_default_reduce_mean,
+                reduce_vec_mean=_default_reduce_vec_mean):
+    """Stochastic gradient of the ChEES criterion wrt trajectory time; the
+    cross-chain means go through the pooling hooks.
 
     NaN-safe: a blown-up trajectory (non-finite z1/v1, acceptance 0)
     contributes zero instead of poisoning the Adam moments.
@@ -114,13 +127,13 @@ def _chees_grad(z0, z1, v1, accept_prob, u_jitter):
     finite = torch.isfinite(z1).all(dim=-1) & torch.isfinite(v1).all(dim=-1)  # (C,)
     z1s = torch.where(finite[:, None], z1, z0)
     v1s = torch.where(finite[:, None], v1, torch.zeros_like(v1))
-    mu0 = torch.mean(z0, dim=0)  # (D,) cross-chain mean
-    mu1 = torch.mean(z1s, dim=0)
+    mu0 = reduce_vec_mean(z0)  # (D,) cross-chain (and cross-rank) mean
+    mu1 = reduce_vec_mean(z1s)
     a = torch.sum(torch.square(z1s - mu1), dim=-1) - torch.sum(torch.square(z0 - mu0), dim=-1)
     b = torch.sum((z1s - mu1) * v1s, dim=-1)  # d/dt ||z1 - mu||^2 / 2
     per_chain = torch.where(finite, accept_prob * a * b * u_jitter, torch.zeros_like(a))
-    denom = torch.clamp(torch.mean(accept_prob), min=1e-4)
-    g = torch.mean(per_chain) / denom
+    denom = torch.clamp(reduce_mean(accept_prob), min=1e-4)
+    g = reduce_mean(per_chain) / denom
     return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
 
 
@@ -143,17 +156,24 @@ def chees_step(
     target_accept: float = 0.651,
     max_leapfrog: int = 1000,
     adam_lr: float = 0.025,
+    reduce_mean=_default_reduce_mean,
+    reduce_welford=_default_reduce_welford,
+    reduce_vec_mean=_default_reduce_vec_mean,
 ):
-    """One ChEES-HMC iteration over all chains; with ``adapt_traj``, warmup
-    step ``step`` of the schedule ``flags``."""
+    """One ChEES-HMC iteration over all (local) chains; with ``adapt_traj``,
+    warmup step ``step`` of the schedule ``flags``.  The ``reduce_*`` hooks
+    pool the adaptation statistics (local by default; across ranks in
+    ``parallel/sharded.py``)."""
     vg = value_and_grad_fn(log_density)
+    mom_gen = (state.momentum_generator if state.momentum_generator is not None
+               else state.generator)
     eps = torch.exp(state.da.log_step) if adapt_traj else state.step_size
     u_jitter = _draw(state.generator, torch.rand, (), state.traj_length)
     n_steps = _n_leapfrog(u_jitter * state.traj_length, eps, max_leapfrog)
 
     z0 = state.chains.z
     chains, z1, v1, accept, nonfinite = _hmc_trajectory(
-        vg, state.chains, state.generator, eps, n_steps, state.inv_mass)
+        vg, state.chains, mom_gen, eps, n_steps, state.inv_mass)
 
     da, welford, inv_mass = state.da, state.welford, state.inv_mass
     traj_length, traj_m, traj_v = state.traj_length, state.traj_m, state.traj_v
@@ -164,11 +184,11 @@ def chees_step(
         # chains, it throttles the shared step size until every chain
         # moves; the 1e-3 floor keeps one pathological chain from stalling
         # adaptation outright
-        pooled_accept = 1.0 / torch.mean(1.0 / torch.clamp(accept, min=1e-3))
+        pooled_accept = 1.0 / reduce_mean(1.0 / torch.clamp(accept, min=1e-3))
         da = adapt.da_update(da, pooled_accept, target_accept=target_accept)
 
         # trajectory length: Adam on log T with the normalized gradient (ascent)
-        g = _chees_grad(z0, z1, v1, accept, u_jitter)
+        g = _chees_grad(z0, z1, v1, accept, u_jitter, reduce_mean, reduce_vec_mean)
         g = g / (torch.abs(g) + 1e-10)
         traj_count += 1
         b1, b2 = 0.9, 0.999
@@ -178,36 +198,24 @@ def chees_step(
         vhat = traj_v / (1 - b2 ** traj_count)
         traj_length = torch.exp(torch.log(traj_length) + adam_lr * mhat / (torch.sqrt(vhat) + 1e-8))
 
-        welford, da, inv_mass = adapt.adapt_window(welford, da, inv_mass, chains.z, flags, step)
+        welford, da, inv_mass = adapt.adapt_window(welford, da, inv_mass, chains.z, flags, step,
+                                                   reduce_welford)
         step_size = torch.exp(da.log_avg_step if flags["last"][step] else da.log_step)
 
     new_state = CheesState(chains=chains, da=da, welford=welford, inv_mass=inv_mass,
                            step_size=step_size, traj_length=traj_length, traj_m=traj_m,
-                           traj_v=traj_v, traj_count=traj_count, generator=state.generator)
+                           traj_v=traj_v, traj_count=traj_count, generator=state.generator,
+                           momentum_generator=state.momentum_generator)
     return new_state, CheesInfo(accept_prob=accept, num_leapfrog=n_steps, diverging=nonfinite)
 
 
-def sample_chees(
-    log_density,
-    init_position,
-    generator=None,
-    num_warmup: int = 500,
-    num_samples: int = 1000,
-    *,
-    init_step_size: float = 0.1,
-    init_traj_length: float = 1.0,
-    target_accept: float = 0.651,
-    max_leapfrog: int = 1000,
-) -> CheesResult:
-    """ChEES-HMC over C chains (``init_position`` (C, D)): warmup (step
-    size, mass matrix, trajectory length), then fixed-settings collection
-    of ``num_samples`` >= 1 draws."""
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be at least 1, got {num_samples}")
+def init_chees_state(log_density, init_position, generator, *, init_step_size: float = 0.1,
+                     init_traj_length: float = 1.0, momentum_generator=None) -> CheesState:
+    """The state before warmup, for the (C, D) chains ``init_position``."""
     like = dict(dtype=init_position.dtype, device=init_position.device)
     dim = init_position.shape[-1]
     step = torch.as_tensor(init_step_size, **like)
-    state = CheesState(
+    return CheesState(
         chains=init_chain(log_density, init_position),
         da=adapt.da_init(step),
         welford=adapt.welford_init(dim, **like),
@@ -218,16 +226,37 @@ def sample_chees(
         traj_v=torch.zeros((), **like),
         traj_count=0,
         generator=generator,
+        momentum_generator=momentum_generator,
     )
-    flags = adapt.build_warmup_schedule(num_warmup)
-    for i in range(num_warmup):
-        state, _ = chees_step(log_density, state, adapt_traj=True, flags=flags, step=i,
-                              target_accept=target_accept, max_leapfrog=max_leapfrog)
 
+
+def chees_warmup(log_density, state: CheesState, num_warmup: int, *, start: int = 0,
+                 stop: int | None = None, target_accept: float = 0.651,
+                 max_leapfrog: int = 1000, reduce_mean=_default_reduce_mean,
+                 reduce_welford=_default_reduce_welford,
+                 reduce_vec_mean=_default_reduce_vec_mean) -> CheesState:
+    """Steps [start, stop) of the warmup schedule of ``num_warmup`` steps
+    (step size, mass matrix, trajectory length): a warmup checkpointed after
+    ``start`` steps resumes here bit for bit."""
+    flags = adapt.build_warmup_schedule(num_warmup)
+    stop = num_warmup if stop is None else stop
+    for i in range(start, stop):
+        state, _ = chees_step(log_density, state, adapt_traj=True, flags=flags, step=i,
+                              target_accept=target_accept, max_leapfrog=max_leapfrog,
+                              reduce_mean=reduce_mean, reduce_welford=reduce_welford,
+                              reduce_vec_mean=reduce_vec_mean)
+    return state
+
+
+def chees_collect(log_density, state: CheesState, num_samples: int, *,
+                  max_leapfrog: int = 1000) -> CheesResult:
+    """Fixed-settings collection of ``num_samples`` >= 1 draws from
+    ``state``; resumable from a checkpointed state."""
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be at least 1, got {num_samples}")
     zs, lps, accs, nls, divs = [], [], [], [], []
     for _ in range(num_samples):
-        state, info = chees_step(log_density, state, adapt_traj=False,
-                                 max_leapfrog=max_leapfrog)
+        state, info = chees_step(log_density, state, adapt_traj=False, max_leapfrog=max_leapfrog)
         zs.append(state.chains.z)
         lps.append(state.chains.logp)
         accs.append(info.accept_prob)
@@ -244,3 +273,32 @@ def sample_chees(
         inv_mass=state.inv_mass,
         final=state,
     )
+
+
+def sample_chees(
+    log_density,
+    init_position,
+    generator=None,
+    num_warmup: int = 500,
+    num_samples: int = 1000,
+    *,
+    init_step_size: float = 0.1,
+    init_traj_length: float = 1.0,
+    target_accept: float = 0.651,
+    max_leapfrog: int = 1000,
+    reduce_mean=_default_reduce_mean,
+    reduce_welford=_default_reduce_welford,
+    reduce_vec_mean=_default_reduce_vec_mean,
+) -> CheesResult:
+    """ChEES-HMC over C chains (``init_position`` (C, D)): warmup (step
+    size, mass matrix, trajectory length), then fixed-settings collection
+    of ``num_samples`` >= 1 draws; the ``reduce_*`` hooks pool the warmup's
+    statistics."""
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be at least 1, got {num_samples}")
+    state = init_chees_state(log_density, init_position, generator,
+                             init_step_size=init_step_size, init_traj_length=init_traj_length)
+    state = chees_warmup(log_density, state, num_warmup, target_accept=target_accept,
+                         max_leapfrog=max_leapfrog, reduce_mean=reduce_mean,
+                         reduce_welford=reduce_welford, reduce_vec_mean=reduce_vec_mean)
+    return chees_collect(log_density, state, num_samples, max_leapfrog=max_leapfrog)

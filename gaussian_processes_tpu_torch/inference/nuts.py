@@ -281,6 +281,14 @@ class NUTSResult(NamedTuple):
     final: SamplerState
 
 
+def _default_reduce_mean(x):
+    return torch.mean(x)
+
+
+def _default_reduce_welford(w):
+    return w
+
+
 def init_sampler_state(log_density, init_position, generator, init_step_size=0.1) -> SamplerState:
     """Batched init: ``init_position`` has shape (C, D)."""
     chains = init_chain(log_density, init_position)
@@ -294,15 +302,19 @@ def init_sampler_state(log_density, init_position, generator, init_step_size=0.1
 
 
 def warmup_step(log_density, state: SamplerState, flags: dict, step: int, *, max_depth=10,
-                target_accept=0.8, max_delta_energy=1000.0):
-    """Adaptive warmup step ``step`` over all chains; ``flags`` is
-    ``adapt.build_warmup_schedule``'s dict."""
+                target_accept=0.8, max_delta_energy=1000.0,
+                reduce_mean=_default_reduce_mean, reduce_welford=_default_reduce_welford):
+    """Adaptive warmup step ``step`` over all (local) chains; ``flags`` is
+    ``adapt.build_warmup_schedule``'s dict.  ``reduce_mean`` and
+    ``reduce_welford`` are the pooling hooks: the local mean and the
+    identity by default; ``parallel/sharded.py`` passes collectives, so the
+    chains of every rank adapt as one population."""
     step_size = torch.exp(state.da.log_step)
     chains, info = nuts_transition(log_density, state.chains, state.generator, step_size,
                                    state.inv_mass, max_depth, max_delta_energy)
-    da = adapt.da_update(state.da, torch.mean(info.accept_prob), target_accept=target_accept)
+    da = adapt.da_update(state.da, reduce_mean(info.accept_prob), target_accept=target_accept)
     welford, da, inv_mass = adapt.adapt_window(state.welford, da, state.inv_mass, chains.z,
-                                               flags, step)
+                                               flags, step, reduce_welford)
     # final warmup step: freeze the averaged step size
     step_out = torch.exp(da.log_avg_step if flags["last"][step] else da.log_step)
     return SamplerState(chains=chains, da=da, welford=welford, inv_mass=inv_mass,
@@ -319,7 +331,8 @@ def sample_step(log_density, state: SamplerState, *, max_depth=10, max_delta_ene
 def collect(log_density, state: SamplerState, num_samples: int, *, max_depth: int = 10,
             max_delta_energy: float = 1000.0) -> NUTSResult:
     """Non-adaptive collection of ``num_samples`` >= 1 draws from an
-    existing ``SamplerState``."""
+    existing ``SamplerState``, the checkpoint/resume entry point: a state
+    saved with ``utils.save_pytree`` and loaded back continues bit for bit."""
     if num_samples < 1:
         raise ValueError(f"num_samples must be at least 1, got {num_samples}")
     zs, lps, accs, nls, divs = [], [], [], [], []
@@ -337,22 +350,38 @@ def collect(log_density, state: SamplerState, num_samples: int, *, max_depth: in
                       inv_mass=state.inv_mass, final=state)
 
 
+def continue_warmup(log_density, state: SamplerState, num_warmup: int, *, start: int = 0,
+                    stop: int | None = None, max_depth: int = 10, target_accept: float = 0.8,
+                    max_delta_energy: float = 1000.0, reduce_mean=_default_reduce_mean,
+                    reduce_welford=_default_reduce_welford) -> SamplerState:
+    """Steps [start, stop) of the warmup schedule of ``num_warmup`` steps
+    from ``state``: a warmup checkpointed after ``start`` steps resumes here
+    bit for bit."""
+    flags = adapt.build_warmup_schedule(num_warmup)
+    stop = num_warmup if stop is None else stop
+    for step in range(start, stop):
+        state, _ = warmup_step(log_density, state, flags, step, max_depth=max_depth,
+                               target_accept=target_accept, max_delta_energy=max_delta_energy,
+                               reduce_mean=reduce_mean, reduce_welford=reduce_welford)
+    return state
+
+
 def warmup(log_density, init_position, generator, num_warmup: int = 500, *,
            max_depth: int = 10, target_accept: float = 0.8, init_step_size: float = 0.1,
-           max_delta_energy: float = 1000.0) -> SamplerState:
+           max_delta_energy: float = 1000.0, reduce_mean=_default_reduce_mean,
+           reduce_welford=_default_reduce_welford) -> SamplerState:
     """Run the adaptive warmup alone; pair with ``collect`` to sample."""
     state = init_sampler_state(log_density, init_position, generator, init_step_size)
-    flags = adapt.build_warmup_schedule(num_warmup)
-    for step in range(num_warmup):
-        state, _ = warmup_step(log_density, state, flags, step, max_depth=max_depth,
-                               target_accept=target_accept,
-                               max_delta_energy=max_delta_energy)
-    return state
+    return continue_warmup(log_density, state, num_warmup, max_depth=max_depth,
+                           target_accept=target_accept, max_delta_energy=max_delta_energy,
+                           reduce_mean=reduce_mean, reduce_welford=reduce_welford)
 
 
 def sample_nuts(log_density, init_position, generator=None, num_warmup: int = 500,
                 num_samples: int = 1000, *, max_depth: int = 10, target_accept: float = 0.8,
-                init_step_size: float = 0.1, max_delta_energy: float = 1000.0) -> NUTSResult:
+                init_step_size: float = 0.1, max_delta_energy: float = 1000.0,
+                reduce_mean=_default_reduce_mean,
+                reduce_welford=_default_reduce_welford) -> NUTSResult:
     """Windowed-warmup NUTS over C chains.
 
     Args:
@@ -360,9 +389,12 @@ def sample_nuts(log_density, init_position, generator=None, num_warmup: int = 50
         positions returning (C,) log densities (differentiated by autograd).
       init_position: (C, D) initial positions (C chains).
       generator: the source of every random draw (None: the global one).
+      reduce_mean, reduce_welford: the warmup's pooling hooks
+        (``warmup_step``).
     """
     state = warmup(log_density, init_position, generator, num_warmup, max_depth=max_depth,
                    target_accept=target_accept, init_step_size=init_step_size,
-                   max_delta_energy=max_delta_energy)
+                   max_delta_energy=max_delta_energy, reduce_mean=reduce_mean,
+                   reduce_welford=reduce_welford)
     return collect(log_density, state, num_samples, max_depth=max_depth,
                    max_delta_energy=max_delta_energy)

@@ -60,6 +60,10 @@ class ARDGaussianKernel(Kernel):
 
     # -- evaluation ----------------------------------------------------------
 
+    @classmethod
+    def sym_K(cls):
+        raise NotImplementedError("ARD kernels are validated against autodiff, not sympy")
+
     @staticmethod
     def k_fn(d, h, w):
         raise NotImplementedError("ARD kernels act on (n, D) inputs")

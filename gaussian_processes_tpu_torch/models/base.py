@@ -8,6 +8,8 @@ over 1-D inputs with
 * ``hessian(x1, x2) -> d2K/dtheta2``   (P, P, n, m)
 * ``hessian_pair(x1, x2, p, q)``       one (n, m) plane of the Hessian
 * ``params`` / ``with_params(theta)`` (functional set), ``copy()``
+* ``sym_K()``                          the sympy expression of k(d), which
+  the tests hold the closed forms to
 
 Kernels are ``nn.Module``s whose hyperparameters are registered buffers in
 ``param_names`` order, so ``kernel.to(device, dtype)`` moves and casts them.
@@ -110,6 +112,13 @@ class Kernel(nn.Module, metaclass=abc.ABCMeta):
 
     def _param_values(self) -> tuple:
         return tuple(getattr(self, name) for name in self.param_names)
+
+    @classmethod
+    def sym_K(cls):
+        """Sympy expression for k(d) and its symbols: (expr, d_symbol,
+        (param_symbols...)) in ``param_names`` order.  Used only by the
+        tests to validate the closed forms; never on a hot path."""
+        raise NotImplementedError(f"{cls.__name__} has no sympy form")
 
     def kdiag(self, xo: torch.Tensor) -> torch.Tensor:
         """diag(k(xo, xo)), shape (m,): k(0) for stationary kernels."""

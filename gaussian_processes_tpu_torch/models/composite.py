@@ -70,6 +70,10 @@ class _CompositeKernel(Kernel):
     def hess_fn(self, d, *params):  # type: ignore[override]
         raise NotImplementedError("composites implement hessian() directly")
 
+    @classmethod
+    def sym_K(cls):
+        raise NotImplementedError("composite kernels are validated against autodiff, not sympy")
+
     def kdiag(self, xo: torch.Tensor) -> torch.Tensor:
         """diag(k(xo, xo)), composed from the children's."""
         return self._combine(self.k1.kdiag(xo), self.k2.kdiag(xo))

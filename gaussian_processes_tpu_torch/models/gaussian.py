@@ -29,6 +29,13 @@ class GaussianKernel(Kernel):
     def __init__(self, h, w, *, dtype=None, device=None):
         super().__init__(h, w, dtype=dtype, device=device)
 
+    @classmethod
+    def sym_K(cls):
+        import sympy as sp
+
+        d, h, w = sp.symbols("d h w", positive=True)
+        return h ** 2 * sp.exp(-(d ** 2) / (2 * w ** 2)), d, (h, w)
+
     @staticmethod
     def k_fn(d, h, w):
         iw2 = 1.0 / (w * w)

@@ -66,7 +66,8 @@ def _shift(noise, jitter):
     return torch.square(noise) + jitter
 
 
-def _operator(kernel, x, noise, jitter, block_size, structure="none") -> _Operator:
+def _operator(kernel, x, noise, jitter, block_size, structure="none",
+              impl="auto") -> _Operator:
     shift = _shift(noise, jitter)
     if isinstance(structure, ski.SKIKronOperator):
         # scattered (n, D) inputs through a Kronecker inducing grid:
@@ -132,7 +133,8 @@ def _operator(kernel, x, noise, jitter, block_size, structure="none") -> _Operat
         return JU
 
     return _Operator(
-        lambda v: krylov.kernel_matvec(kernel, x, v, noise, jitter, block_size=block_size),
+        lambda v: krylov.kernel_matvec(kernel, x, v, noise, jitter, block_size=block_size,
+                                       impl=impl),
         None, jacvec)
 
 
@@ -152,6 +154,7 @@ def fit_iterative(
     structure: str = "none",
     replace_every: int = 25,
     precond_L: Optional[torch.Tensor] = None,
+    impl: str = "auto",
 ) -> IterativePosterior:
     """Matrix-free exact-GP fit; memory O(n * max(block_size, precond_rank)).
 
@@ -163,14 +166,16 @@ def fit_iterative(
     with the circulant-preconditioned SLQ logdet (exact logdet(P)); and
     elsewhere one batched CG solves [y, Rademacher probes] and its
     coefficients give the plain SLQ logdet.  With a SKI operator the target
-    is the SKI surrogate K_ski = W K_g W^T.
+    is the SKI surrogate K_ski = W K_g W^T.  ``impl`` picks the kernel
+    matvec of ``structure="none"`` (``krylov.kernel_matvec``: ``"auto"``,
+    ``"fused"`` or ``"strip"``, the row-sharded fit's product at W = 1).
     """
     x, y, noise = _inputs(x, y, noise)
     draws = krylov.as_draws(generator)
     n = x.shape[0]
     dtype = y.dtype
 
-    op = _operator(kernel, x, noise, jitter, block_size, structure)
+    op = _operator(kernel, x, noise, jitter, block_size, structure, impl)
     mv = op.matvec
     if precond_rank > 0:
         L = (precond_L if precond_L is not None

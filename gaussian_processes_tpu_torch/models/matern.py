@@ -35,6 +35,16 @@ class Matern32Kernel(Kernel):
     def __init__(self, h, w, *, dtype=None, device=None):
         super().__init__(h, w, dtype=dtype, device=device)
 
+    @classmethod
+    def sym_K(cls):
+        import sympy as sp
+
+        # d must stay real (not positive) or sympy folds Abs(d) -> d
+        d = sp.symbols("d", real=True)
+        h, w = sp.symbols("h w", positive=True)
+        u = sp.sqrt(3) * sp.Abs(d) / w
+        return h ** 2 * (1 + u) * sp.exp(-u), d, (h, w)
+
     @staticmethod
     def k_fn(d, h, w):
         u = _SQRT3 * torch.abs(d) / w
@@ -66,6 +76,15 @@ class Matern52Kernel(Kernel):
 
     def __init__(self, h, w, *, dtype=None, device=None):
         super().__init__(h, w, dtype=dtype, device=device)
+
+    @classmethod
+    def sym_K(cls):
+        import sympy as sp
+
+        d = sp.symbols("d", real=True)
+        h, w = sp.symbols("h w", positive=True)
+        u = sp.sqrt(5) * sp.Abs(d) / w
+        return h ** 2 * (1 + u + u ** 2 / 3) * sp.exp(-u), d, (h, w)
 
     @staticmethod
     def k_fn(d, h, w):

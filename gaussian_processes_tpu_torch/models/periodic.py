@@ -37,6 +37,13 @@ class PeriodicKernel(Kernel):
     def __init__(self, h, w, p, *, dtype=None, device=None):
         super().__init__(h, w, p, dtype=dtype, device=device)
 
+    @classmethod
+    def sym_K(cls):
+        import sympy as sp
+
+        d, h, w, p = sp.symbols("d h w p", positive=True)
+        return h ** 2 * sp.exp(-2 * sp.sin(d / (2 * p)) ** 2 / w ** 2), d, (h, w, p)
+
     @staticmethod
     def k_fn(d, h, w, p):
         s = torch.sin(d / (2.0 * p))

@@ -37,6 +37,13 @@ class RationalQuadraticKernel(Kernel):
     def __init__(self, h, w, a, *, dtype=None, device=None):
         super().__init__(h, w, a, dtype=dtype, device=device)
 
+    @classmethod
+    def sym_K(cls):
+        import sympy as sp
+
+        d, h, w, a = sp.symbols("d h w a", positive=True)
+        return h ** 2 * (1 + d ** 2 / (2 * a * w ** 2)) ** (-a), d, (h, w, a)
+
     @staticmethod
     def k_fn(d, h, w, a):
         z = d * d / (2.0 * w * w)

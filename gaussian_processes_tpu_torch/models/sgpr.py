@@ -359,10 +359,11 @@ def select_inducing(generator, x, m: int, method: str = "kmeans"):
 
 
 def _elbo_value_and_grad(kernel_template, x, y, z, u, opts, learn_inducing=False,
-                         prior=None):
+                         prior=None, bound=None):
     """(bound + log prior, gradient) at u = (log theta, log s[, z]) by
     autograd: kernel B1's rule (B6's for ARD) through the sweep and
-    ``psd_pinv``'s through the tail."""
+    ``psd_pinv``'s through the tail.  ``bound`` replaces ``elbo_sgpr`` (the
+    row-sharded bound of ``parallel/sgpr_sharded.py``)."""
     from gaussian_processes_tpu_torch.inference import gp_model
 
     P = kernel_template.n_params
@@ -370,7 +371,7 @@ def _elbo_value_and_grad(kernel_template, x, y, z, u, opts, learn_inducing=False
         u = u.detach().requires_grad_()
         kernel, noise = gp_model.unpack(kernel_template, u[:P + 1])
         zz = u[P + 1:].reshape(z.shape) if learn_inducing else z
-        value = elbo_sgpr(kernel, x, y, noise, zz, **opts)
+        value = (bound or elbo_sgpr)(kernel, x, y, noise, zz, **opts)
         if prior is not None:
             mu, sd = prior
             value = value - 0.5 * torch.sum(torch.square((u - mu) / sd))

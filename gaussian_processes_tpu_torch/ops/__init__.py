@@ -1,5 +1,6 @@
 """Native ops layer: hand-written CUDA kernels and their plain PyTorch twins,
-and the Krylov solvers of the matrix-free path (``ops.krylov``).
+the Krylov solvers of the matrix-free path (``ops.krylov``) and the
+structured-grid operators (``ops.toeplitz``, ``ops.kronecker``, ``ops.ski``).
 
 ``launch_counts`` counts the launches of each kernel wrapper.
 """
@@ -30,9 +31,17 @@ from gaussian_processes_tpu_torch.ops.pairwise import (
     pairwise_matrix_chains,
     pairwise_matrix_chains_reference,
     pairwise_matrix_reference,
+    tile_program,
 )
+from gaussian_processes_tpu_torch.ops import kronecker
+from gaussian_processes_tpu_torch.ops import ski
+from gaussian_processes_tpu_torch.ops import toeplitz
 
 __all__ = [
+    "kronecker",
+    "ski",
+    "toeplitz",
+    "tile_program",
     "launch_counts",
     "chol_tile",
     "chol_tile_inv",

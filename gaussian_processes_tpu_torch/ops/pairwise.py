@@ -11,7 +11,8 @@ tensors on a CUDA card it launches the hand-written kernel of
 * ``pairwise_matrix`` (B1) replaces ``_tile_body``: K[i, j] = k(x1_i - x2_j)
   with an optional (s^2 + jitter) on the global diagonal, written once.  A
   Sum/Product tree goes to the kernel as a sum of products of its leaves
-  (``_tree_flat``, ``_tree_program``: the counterpart of ``tile_program``),
+  (``_tree_flat``, ``_tree_program``; ``tile_program`` is the same sum of
+  products in plain PyTorch),
   at most ``MAX_TREE_LEAVES`` leaves.  B1 and B4 evaluate one folded element
   (``folded_values``; ``pairwise_matrix_folded`` is B1's own arithmetic),
   and ``pivot_rows`` gives the pivoted Cholesky its rows on parameters read
@@ -185,6 +186,30 @@ def _tree_program(struct):
     code = [len(leaves)] + [v for cls, offset in leaves for v in (cls.cuda_family, offset)]
     code += [len(masks), *masks]
     return (ctypes.c_int * len(code))(*code)
+
+
+def tile_program(kernel):
+    """(fn, params) of a leaf or a Sum/Product tree, the counterpart of the
+    JAX package's ``tile_program``: ``fn(x1, x2, params)`` is the plain
+    elementwise K (n, m) at the (P,) parameters ``params``.  For a tree it is
+    the sum of products of ``_tree_flat``, the form kernels B1 and B4
+    evaluate; TypeError for a kernel without a closed form (ARD)."""
+    leaves, masks = _tree_flat(_tree_structure(kernel))
+
+    def fn(x1, x2, params):
+        d = x1[:, None] - x2[None, :]
+        values = [cls.k_fn(d, *params[off:off + len(cls.param_names)].unbind(0))
+                  for cls, off in leaves]
+        out = None
+        for mask in masks:
+            term = None
+            for bit, v in enumerate(values):
+                if mask >> bit & 1:
+                    term = v if term is None else term * v
+            out = term if out is None else out + term
+        return out
+
+    return fn, kernel.params
 
 
 def _launch_family(kernel):

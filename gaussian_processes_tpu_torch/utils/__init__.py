@@ -1,4 +1,6 @@
-"""Utility layer: device policy, config, metrics, profiling."""
+"""Utility layer: device policy, config, metrics, profiling, checkpoints."""
+
+from gaussian_processes_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
 from gaussian_processes_tpu_torch.utils.config import (
     CONFIGS,
@@ -45,4 +47,6 @@ __all__ = [
     "roofline",
     "timed",
     "trace",
+    "load_pytree",
+    "save_pytree",
 ]
