@@ -40,7 +40,7 @@
    over 8 dimensions: ``fit_iterative`` at N=65536 and the exact fit at
    N=16384; five Adam steps of ``fit_mle_iterative`` at N=16384), then
    through the CLI config #2 (periodic type-II MLE, 4 restarts) and config
-   #3 (64 chains at N=500) with ChEES (cut to 250 + 250) and with NUTS (150 +
+   #3 (64 chains at N=500) with ChEES (cut to 150 + 150) and with NUTS (150 +
    150), float32.  Then the
    families and trees ported after SE and periodic: the exact path for
    Matérn 3/2, Matérn 5/2 and RQ (fit + predict at N=16384, gradient and
@@ -50,8 +50,11 @@
    quasi-periodic tree SE x periodic through ``fit_iterative`` at N=65536;
    config #2's MLE with RQ and a short ChEES run of config #3 with Matérn
    5/2 through the CLI; one batched value and gradient of 64 chains for the
-   tree.  Then slice 3 and config #4: ``fit_large`` through the CLI at
-   N=65536 (B1's K and B3 under the blocked factor, K and the factor 34.5 GB);
+   tree.  Then slice 3 and config #4: the single-card ``fit`` at N=65536
+   (``fit-large-twin``: K and its factor, 34.5 GB), then, counted on its
+   own, ``fit_large`` through the CLI on the same data (``fit-large``:
+   ``fit_blockcyclic`` over the process group of one rank, B1's strip, B3
+   under each diagonal block, one 17.2 GB strip);
    bench.py's Toeplitz fits at N=65536 and 2^20 and the Toeplitz gradient
    (B1's grid column, B2a's Jacobian columns); the Whittle posteriors'
    value and gradient at N=2^20 (SE for 1 and 16 chains, the quasi-periodic
@@ -86,9 +89,13 @@
    the data-sharded log posterior's value and gradient at N=16384, each
    held against its twin (``row-sharded``), and that log posterior with one
    strip of its matvec or of its Jacobian dropped, which its limits must
-   catch.
+   catch; last ``dryrun.dryrun_multichip(1)`` (``dryrun``: every
+   multi-device path on tiny shapes, the 2-D grid fit and the block-cyclic
+   factor among them).
    Slice 5's kernel shapes (the 1024-chain table and stacks, the row
-   strip) are held against their plain versions and timed beforehand.
+   strip, the block-cyclic strip that config #4's fit builds over the
+   group of one rank) are held against their plain versions and timed
+   beforehand.
    Requires every kernel of a path to have launched in that path's run.
 5. Checks the results against independent plain float64 computations on the
    card (pairwise twins + torch.linalg): true residuals of the iterative
@@ -103,7 +110,8 @@
    residuals, RQ's MLE optimum, the Matérn ChEES run's R-hat and
    acceptance, and the tree's batched value and gradient against the plain
    float64 version on the CPU; config #4's true residual (B4 in float64, no
-   float64 K) and its lml against ``fit_iterative`` in standard errors; the
+   float64 K), its peak memory against one strip, its lml against the
+   single-card fit's and against ``fit_iterative`` in standard errors; the
    Toeplitz fits' true residuals and lml against the same path in float64;
    the Whittle values and gradients against float64; the N=2^20 posterior
    means against the committed reference draws
@@ -232,18 +240,19 @@ CHEES_RHAT = 1.01
 CHEES_ACCEPT = (0.55, 0.99)
 NUTS_DIVERGENT = 0.01
 # NUTS: 500 warmup + 1000 draws took 106 and 154 s on the card (the same
-# draws; the host sets the wall), so the run is cut, first to 200 + 300 and
+# draws; the host sets the wall), so the run is cut, first to 200 + 300,
 # then to 150 + 150 (the shortest warmup with a mass-matrix window) to make
 # room for config #5, with the looser R-hat limit (split R-hat runs near
 # 1 + (tau - 1) / (2 n) for n draws a half-chain: the 200 + 300 run's
-# tau ~ 4.6 gives ~1.024 at 150 draws; the full run goes through the CLI
-# by hand; PERF.md)
+# tau ~ 4.6 gives ~1.024 at 150 draws, read 1.028; the full run goes
+# through the CLI by hand; PERF.md)
 NUTS_WARMUP, NUTS_SAMPLES = 150, 150
 NUTS_RHAT = 1.01 if NUTS_SAMPLES == 1000 else 1.05
-# ChEES: cut from 500 + 1000 (117.6 s on the card) to 500 + 500 and then to
+# ChEES: cut from 500 + 1000 (117.6 s on the card) to 500 + 500, then to
 # 250 + 250 to make room for config #5's 1024 chains (tau ~ 1.3 at 500 +
-# 500: R-hat ~1.001 at 250 draws); its gates stay (PERF.md)
-CHEES_WARMUP, CHEES_SAMPLES = 250, 250
+# 500: R-hat ~1.001 at 250 draws; read 0.9992) and to 150 + 150 for the
+# block-cyclic fit and the dryrun (R-hat ~1.002); its gates stay (PERF.md)
+CHEES_WARMUP, CHEES_SAMPLES = 150, 150
 
 # the least time the card could take for a kernel's work: the larger of its
 # operations over the float32 peak outside the tensor cores and its bytes
@@ -442,6 +451,11 @@ KERNEL_ROWS = [
     ("B1 pairwise K, row strip (n/W x block, no diagonal)", "pairwise_k", "pairwise_k_row_strip",
      "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88",
      ("row-sharded",)),
+    # slice 5c: the block-cyclic strip (m_loc b, n_pad) that fit_blockcyclic
+    # builds on the fit-large path (W = 1: (N, N))
+    ("B1 pairwise K, block-cyclic strip (m_loc b x n_pad, no diagonal)", "pairwise_k",
+     "pairwise_k_blockcyclic_strip", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:88", ("fit-large",)),
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD
@@ -465,9 +479,13 @@ PATH_KERNELS = {
     # leaves' B1 and B2a chain launches
     "chains-tree": ("pairwise_k_chains_tree", "pairwise_k_chains", "pairwise_jac_chains",
                     "chol_tile"),
-    # slice 3 and config #4: B1 builds K at N=65536 and the grids' (n, 1)
-    # columns and 1-D SKI's pivot rows, B6 the N-D SKI's pivot rows; the
-    # Whittle densities (analytic spectra and FFTs) launch no hand kernel
+    # slice 3 and config #4: B1 builds the single-card twin's K and B3
+    # factors it; then, counted alone, B1 builds fit_blockcyclic's strip at
+    # N=65536 and B3 factors its diagonal blocks; B1
+    # builds the grids' (n, 1) columns and 1-D SKI's pivot rows, B6 the N-D
+    # SKI's pivot rows; the Whittle densities (analytic spectra and FFTs)
+    # launch no hand kernel
+    "fit-large-twin": ("pairwise_k", "chol_tile"),
     "fit-large": ("pairwise_k", "chol_tile"),
     "toeplitz": ("pairwise_k", "pairwise_jac"),
     "whittle": (),
@@ -491,6 +509,11 @@ PATH_KERNELS = {
     "multihost-chains": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
     "row-twins": ("pairwise_k", "kernel_matvec", "kernel_jacvec"),
     "row-sharded": ("pairwise_k", "pairwise_jac"),
+    # slice 5c-5d: dryrun_multichip(1), every multi-device path on tiny
+    # shapes: B1 (grid blocks, block-cyclic strips, cross-covariances, pivot
+    # rows), B2a (the row-sharded gradient's Jacobian strips), B3 (the dense
+    # factors; the samplers' chain tables count under their own names)
+    "dryrun": ("pairwise_k", "pairwise_jac", "chol_tile"),
 }
 
 
@@ -2194,6 +2217,20 @@ def check_main_path(check, out, noise, jitter):
 # eigenvalues, so ||A||_2 ||alpha|| ~ 6e7 against ||A alpha|| = ||y||
 FIT_LARGE_RESIDUAL = 1e-2
 FIT_LARGE_POWER_ITERS = 30
+# config #4 runs through fit_blockcyclic (the CLI, over the process group):
+# its peak memory at W = 1 within 1.25 x the one (N, N) float32 strip
+# (17.18 GB at N=65536; the single-card fit holds K and its factor, 34.4 GB),
+# so a strip-sized temporary fails it; its lml within the fit's own limit
+# (PERF.md section 2) of the single-card fit's on the same data, which it
+# differs from by the right- against left-looking order of float32 sums
+FIT_LARGE_PEAK_GB = 1.25 * 65536 ** 2 * 4 / 1e9
+FIT_LARGE_LML_REL = 1e-3
+# kernel B1 on the block-cyclic strip of config #4 (blocks of 256): at the
+# W = 1 of the fit-large path, (N, N), held to its plain version in row
+# chunks of BC_CHUNK (the plain version's (N, N) temporaries would not fit
+# beside the 17.2 GB strip); in float64 on rank 0's (8192, N) strip over
+# BC_STRIP_RANKS ranks
+BC_BLOCK, BC_CHUNK, BC_STRIP_RANKS = 256, 8192, 8
 # bench.py's toeplitz workload: linspace x on [-pi, pi], y = sin(50 x) +
 # 0.1 eps, SE with h = 1 and w = max(100 * 2 pi / N, 1e-4), noise 0.1,
 # jitter 1e-4, 8 probes, tol 1e-6; (N, iterations)
@@ -2345,42 +2382,83 @@ def print_profile(label, rows):
         print(f"    {ms:9.3f} ms {count:6d}x {name}", flush=True)
 
 
-def run_fit_large_path(dev) -> dict:
-    """Config #4 through the CLI at N=65536 (fit_large on one card), then
-    the same fit through the library for its alpha."""
+def run_fit_large_twin_path(dev) -> dict:
+    """The single-card ``fit`` on config #4's data at N=65536, one warm call
+    for its wall and peak memory: the lml that the block-cyclic fit is held
+    to."""
     import torch
     import gaussian_processes_tpu_torch as gpx
-    from gaussian_processes_tpu_torch import cli
     from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
 
     cfg = CONFIGS["config4_large_n"]
-    out = {"cli": cli.run_config(cfg, device=dev)}
     x, y, _ = (torch.as_tensor(a, device=dev) for a in make_data(cfg.data, "float32"))
     k = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32, device=dev)
-    post = gpx.fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
-    out.update(x=x, y=y, k=k, alpha=post.alpha, lml=float(post.log_marginal),
-               noise=cfg.fit.noise, jitter=cfg.fit.jitter)
+    noise, jitter = cfg.fit.noise, cfg.fit.jitter
+    gpx.fit(k, x, y, noise, jitter)
+    (twin, wall), peak = peak_gb(lambda: synced_wall(lambda: gpx.fit(k, x, y, noise, jitter)))
+    return dict(x=x, y=y, k=k, lml=float(twin.log_marginal), fit_wall_s=wall, fit_peak_gb=peak,
+                noise=noise, jitter=jitter)
+
+
+def run_fit_large_path(dev) -> dict:
+    """Config #4 through the CLI at N=65536 (fit_large: fit_blockcyclic over
+    the process group, here one rank).  A spy on the library's entry points
+    counts the CLI's block-cyclic fits and predictions and keeps the alpha
+    of its last fit, the one its predictions use."""
+    from gaussian_processes_tpu_torch import cli, parallel
+    from gaussian_processes_tpu_torch.utils import CONFIGS
+
+    out = {"fits": 0, "predictions": 0}
+    fit, predict = parallel.fit_blockcyclic, parallel.predict_diag_blockcyclic
+
+    def fit_spy(*args, **kwargs):
+        post = fit(*args, **kwargs)
+        out.update(fits=out["fits"] + 1, alpha=post.alpha, world_size=post.world_size)
+        return post
+
+    def predict_spy(*args, **kwargs):
+        out["predictions"] += 1
+        return predict(*args, **kwargs)
+
+    with _swap(parallel, "fit_blockcyclic", fit_spy), \
+            _swap(parallel, "predict_diag_blockcyclic", predict_spy):
+        out["cli"] = cli.run_config(CONFIGS["config4_large_n"], device=dev)
     return out
 
 
-def check_fit_large_path(check, out, dev) -> dict:
+def check_fit_large_path(check, twin, out, launches, dev) -> dict:
     import numpy as np
     import torch
     import gaussian_processes_tpu_torch as gpx
     from gaussian_processes_tpu_torch.models import iterative_gp
     from gaussian_processes_tpu_torch.ops import pairwise as pw
 
-    print("fit-large (config #4, float32, one card):", flush=True)
+    print("fit-large (config #4, float32, fit_blockcyclic over the process group):", flush=True)
     s = out["cli"]
-    x, y, k, alpha = out["x"], out["y"], out["k"], out["alpha"]
-    noise, jitter = out["noise"], out["jitter"]
+    x, y, k, alpha = twin["x"], twin["y"], twin["k"], out["alpha"]
+    noise, jitter = twin["noise"], twin["jitter"]
     n = x.shape[0]
-    print(f"  N={n}: cli fit_wall_s {s['fit_wall_s']:.4f} s (best of 2 after a warm-up), "
-          f"peak memory {s['peak_memory_gb']:.2f} GB, lml {s['log_marginal']:.4f}, "
-          f"rmse {s['pred_rmse_vs_truth']:.5f}, {s['fraction_of_peak']:.3f} of the float32 peak",
-          flush=True)
+    # the block-cyclic calls alone launch B1 in that window: one strip a
+    # fit, one K(xo, x) a prediction
+    calls = out["fits"] + out["predictions"]
+    print(f"  the CLI made {out['fits']} block-cyclic fits and {out['predictions']} "
+          f"predictions; B1 launched {launches.get('pairwise_k', 0)} times, B3 "
+          f"{launches.get('chol_tile', 0)}", flush=True)
+    check("fit-large: block-cyclic fits + predictions - B1 launches (<= 0: one strip a fit)",
+          calls - launches.get("pairwise_k", 0), 0.0)
+    check("fit-large: block-cyclic fits made by the CLI, 1 - count (<= 0: at least one)",
+          1.0 - out["fits"], 0.0)
+    lml_rel = abs(s["log_marginal"] - twin["lml"]) / abs(twin["lml"])
+    print(f"  N={n}, W={out['world_size']} ({s['mesh']}), block {s['block_size']}: cli "
+          f"fit_wall_s {s['fit_wall_s']:.4f} s (best of 2 after a warm-up) against the "
+          f"single-card fit's {twin['fit_wall_s']:.4f} s; peak memory {s['peak_memory_gb']:.2f} "
+          f"GB against {twin['fit_peak_gb']:.2f}; lml {s['log_marginal']:.4f} against "
+          f"{twin['lml']:.4f} (rel {lml_rel:.3e}); rmse {s['pred_rmse_vs_truth']:.5f}, "
+          f"{s['fraction_of_peak']:.3f} of the float32 peak", flush=True)
     check(f"fit-large N={n} rmse vs sin(2x)", s["pred_rmse_vs_truth"], FIT_RMSE)
-    check(f"fit-large N={n} peak memory (GB, of 80)", s["peak_memory_gb"], 80.0)
+    check(f"fit-large N={n} peak memory (GB, 1.25 x one float32 strip)", s["peak_memory_gb"],
+          FIT_LARGE_PEAK_GB)
+    check(f"fit-large N={n} lml vs the single-card fit's (relative)", lml_rel, FIT_LARGE_LML_REL)
     # ||A||_2 by power iteration (B4, float32); the residual by B4 in float64
     v = torch.ones(n, device=dev) / math.sqrt(n)
     for _ in range(FIT_LARGE_POWER_ITERS):
@@ -2405,16 +2483,18 @@ def check_fit_large_path(check, out, dev) -> dict:
     # lam_max ~ 4.6 against s^2 + jitter = 0.0101) leaves the preconditioned
     # SLQ an error of ~2e5 nats, so the gate is at the workload's kernel
     summary = {"fit_wall_s": s["fit_wall_s"], "peak_memory_gb": s["peak_memory_gb"],
-               "lml": s["log_marginal"], "backward_error": omega, "relative_residual": rn / yn}
+               "lml": s["log_marginal"], "backward_error": omega, "relative_residual": rn / yn,
+               "mesh": s["mesh"], "block_size": s["block_size"], "lml_rel_to_fit": lml_rel,
+               "fit_twin_wall_s": twin["fit_wall_s"], "fit_twin_peak_gb": twin["fit_peak_gb"]}
     for label, kern, lml_dense in (
-            ("w=1", k, out["lml"]),
+            ("w=1", k, twin["lml"]),
             ("w=100*2pi/N", k.with_params(torch.tensor([1.0, 100 * 2 * math.pi / n], device=dev)),
              None)):
         if lml_dense is None:
             (lml_dense, dense_s) = synced_wall(
                 lambda: float(gpx.fit(kern, x, y, noise, jitter).log_marginal))
         else:
-            dense_s = s["fit_wall_s"]
+            dense_s = twin["fit_wall_s"]
         est, wall = synced_wall(lambda: iterative_gp.log_marginal_estimate_iterative(
             kern, x, y, noise, Float64Draws(40), **ITER_OPTS))
         terms = est.logdet_terms.double().cpu().numpy()
@@ -3754,6 +3834,59 @@ def check_slice5_kernels(check, dev, rows):
               flush=True)
 
 
+def check_blockcyclic_kernel(check, dev, rows):
+    """B1 on ``fit_blockcyclic``'s strip of config #4 (no diagonal): float32
+    at the shape that the fit-large path builds over the group of one rank,
+    (N, N), against ``pairwise_matrix_reference`` and B1's folded arithmetic
+    in BC_CHUNK-row chunks, timed against the reference over the same
+    chunks; float64 on rank 0's strip over BC_STRIP_RANKS ranks."""
+    import torch
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+    from gaussian_processes_tpu_torch.utils import CONFIGS, make_data
+
+    data = CONFIGS["config4_large_n"].data
+    n = data.n
+    for dtype, world in ((torch.float32, 1), (torch.float64, BC_STRIP_RANKS)):
+        dname = str(dtype).split(".")[-1]
+        x = torch.as_tensor(make_data(data, dname)[0], device=dev)
+        x_own = x.view(n // BC_BLOCK // world, world, BC_BLOCK)[:, 0].reshape(-1)  # rank 0's
+        k = gpx.GaussianKernel(1.0, 1.0, dtype=dtype, device=dev)
+        chunks = torch.split(x_own, BC_CHUNK)
+        kern = lambda: pw.pairwise_matrix(k, x_own, x)  # noqa: E731
+
+        def plain():
+            for xc in chunks:
+                pw.pairwise_matrix_reference(k, xc, x)
+
+        got = kern()
+        shape = tuple(got.shape)
+        viol, fold_viol, err = 0.0, 0.0, 0.0
+        for i, xc in enumerate(chunks):
+            part = got[i * BC_CHUNK:i * BC_CHUNK + xc.numel()]
+            e, v = plane_violation(part, pw.pairwise_matrix_reference(k, xc, x), dname)
+            err, viol = max(err, e), max(viol, v)
+            if dtype == torch.float32:
+                fold_viol = max(fold_viol, plane_violation(
+                    part, pw.pairwise_matrix_folded(k, xc, x), dname)[1])
+        del got, part
+        torch.cuda.empty_cache()
+        check(f"B1 block-cyclic strip {shape} {dname} vs pairwise_matrix_reference", viol, 1.0)
+        if dtype == torch.float32:
+            check(f"B1 block-cyclic strip {shape} float32 vs its folded arithmetic",
+                  fold_viol, 1.0)
+            nb = x_own.numel() * n
+            rows["pairwise_k_blockcyclic_strip"] = {
+                "shape": shape, "max_abs_err": err, "ms": time_ms(kern, 20),
+                "plain_ms": time_ms(plain, 5), "library_ms": None,
+                **bound(SE_K_OPS * nb, 4 * (x_own.numel() + n + nb))}
+            torch.cuda.empty_cache()
+    r = rows["pairwise_k_blockcyclic_strip"]
+    print(f"  pairwise_k_blockcyclic_strip {r['shape']}: {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} (in {BC_CHUNK}-row chunks), bound {r['bound_ms']:.4f} "
+          f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}", flush=True)
+
+
 def run_multihost_path(dev) -> dict:
     """Config #5 through the CLI's nuts_multihost task (depth cut, chains
     and N in full, checkpoints between the chunks), then the resume check:
@@ -3914,6 +4047,14 @@ def planted_faults(twins, mesh) -> dict:
     return out
 
 
+def run_dryrun_path(dev) -> dict:
+    """``dryrun.dryrun_multichip(1)`` on the card over the process group of
+    one rank; it raises if a step fails."""
+    from gaussian_processes_tpu_torch import dryrun
+
+    return {"wall_s": synced_wall(lambda: dryrun.dryrun_multichip(1, device=dev))[1]}
+
+
 def check_row_sharded_path(check, twins, out) -> dict:
     import torch
 
@@ -4005,6 +4146,7 @@ def main() -> int:
     check_chain_kernels(check, dev, slice_rows)
     check_slice4_kernels(check, dev, slice_rows)
     check_slice5_kernels(check, dev, slice_rows)
+    check_blockcyclic_kernel(check, dev, slice_rows)
     print(f"kernel checks and timings done ({time.perf_counter() - t_start:.1f} s from the "
           "start)", flush=True)
 
@@ -4030,6 +4172,7 @@ def main() -> int:
                       *((p, lambda p=p: run_new_sampler_path(dev, p))
                         for p in ("mle-rq", "chees-matern52")),
                       ("chains-tree", lambda: run_chains_tree_path(dev)),
+                      ("fit-large-twin", lambda: run_fit_large_twin_path(dev)),
                       ("fit-large", lambda: run_fit_large_path(dev)),
                       ("toeplitz", lambda: run_toeplitz_path(dev)),
                       ("whittle", lambda: run_whittle_path(dev)),
@@ -4039,7 +4182,8 @@ def main() -> int:
                       *slice4_paths(dev),
                       ("multihost-chains", lambda: run_multihost_path(dev)),
                       ("row-twins", lambda: run_row_twins_path(dev)),
-                      ("row-sharded", lambda: run_row_sharded_path(dev, runs["row-twins"]))):
+                      ("row-sharded", lambda: run_row_sharded_path(dev, runs["row-twins"])),
+                      ("dryrun", lambda: run_dryrun_path(dev))):
         t0 = time.perf_counter()
         _build.launch_counts.clear()
         runs[path] = run()
@@ -4060,7 +4204,9 @@ def main() -> int:
     iter_summary.update(check_tree_iterative_path(check, runs["matrix-free-tree"]))
     sampler_summary.update(check_new_sampler_paths(check, runs, dev))
     check_chains_tree_path(check, runs["chains-tree"])
-    slice3 = {"fit_large": check_fit_large_path(check, runs.pop("fit-large"), dev),
+    slice3 = {"fit_large": check_fit_large_path(check, runs.pop("fit-large-twin"),
+                                                runs.pop("fit-large"),
+                                                launches_by_path["fit-large"], dev),
               "toeplitz": check_toeplitz_path(check, runs.pop("toeplitz"), dev, slice_rows),
               "whittle": check_whittle_path(check, runs.pop("whittle"), dev),
               "bayes_grid": check_bayes_grid_path(check, runs.pop("bayes-grid")),
@@ -4069,7 +4215,8 @@ def main() -> int:
     slice5 = {"config5": check_multihost_path(check, runs.pop("multihost-chains"),
                                               sampler_summary["posterior_mean_quadrature"]),
               "row_sharded": check_row_sharded_path(check, runs.pop("row-twins"),
-                                                    runs.pop("row-sharded"))}
+                                                    runs.pop("row-sharded")),
+              "dryrun": runs.pop("dryrun")}
     parallel.shutdown_cluster()
     slice4 = check_slice4_paths(check, runs, dev)
 
@@ -4116,7 +4263,8 @@ def main() -> int:
         "slice4": slice4,
         "slice5": slice5,
         **{key: slice_rows[key] for key in ("pairwise_k_chains_1024", "pairwise_jac_chains_1024",
-                                            "chol_tile_inv_chains_1024", "pairwise_k_row_strip")},
+                                            "chol_tile_inv_chains_1024", "pairwise_k_row_strip",
+                                            "pairwise_k_blockcyclic_strip")},
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@ Usage:
     python -m gaussian_processes_tpu_torch.cli config3_chees_64 --device cuda
     python -m gaussian_processes_tpu_torch.cli config3_nuts_64 --num-samples 200
     python -m gaussian_processes_tpu_torch.cli config4_large_n
+    torchrun --nproc-per-node 8 -m gaussian_processes_tpu_torch.cli config4_large_n
     python -m gaussian_processes_tpu_torch.cli grid1m_bayes_whittle
     python -m gaussian_processes_tpu_torch.cli sparse1m_sgpr
     python -m gaussian_processes_tpu_torch.cli config5_nuts_sharded
@@ -17,17 +18,18 @@ Counterpart of ``gaussian_processes_tpu/cli.py``.  The port runs the
 ``fit`` (BASELINE config #1: build K, factor, solve, predict), ``mle``
 (config #2: type-II MLE with restarts), ``nuts`` and ``chees`` tasks
 (config #3: the hyperparameter posterior sampled over many chains),
-``fit_large`` (config #4: the exact fit at N=65536 on one card, where the
-JAX package runs its block-cyclic factorization over a mesh),
-``bayes_grid`` (ChEES on the Whittle posterior of a uniform grid at
-N=2^20) and ``sgpr`` (the Titsias bound at N=2^20 scattered points with
-k-means inducing points) and ``nuts_multihost`` (config #5: NUTS with the
-chains split over the ranks of a process group, one card each, which
-``parallel.initialize_cluster`` brings up from the launcher's variables;
-one process is a group of one).  Every task runs on ``cuda`` unless another
-device is asked for.  Each run emits JSONL metrics (utils/metrics.py) and an
-end-of-run summary line; ``--profile-dir`` writes a ``torch.profiler``
-trace of the timed part.
+``fit_large`` (config #4: the exact fit at N=65536 through the block-cyclic
+factorization over the ranks of a process group, one card each holding
+N^2 / W of K and one N x b panel), ``bayes_grid`` (ChEES on the Whittle
+posterior of a uniform grid at N=2^20) and ``sgpr`` (the Titsias bound at
+N=2^20 scattered points with k-means inducing points) and
+``nuts_multihost`` (config #5: NUTS with the chains split over the ranks of
+a process group).  ``fit_large`` and
+``nuts_multihost`` run over the group that ``parallel.initialize_cluster``
+brings up from the launcher's variables; one process is a group of one.
+Every task runs on ``cuda`` unless another device is asked for.  Each run
+emits JSONL metrics (utils/metrics.py) and an end-of-run summary line;
+``--profile-dir`` writes a ``torch.profiler`` trace of the timed part.
 """
 
 from __future__ import annotations
@@ -67,14 +69,38 @@ def _synchronize(device):
 
 def _run_fit(cfg, kernel, x, y, xo, device, device_name):
     """The exact fit (K, the blocked factor, two solves) and its predictions.
-    For ``fit_large`` (config #4) on one device: K and the factor's separate
-    output are the two full-size buffers, 2 x 17.2 GB in float32 at N=65536,
-    timed best of 2 after a warm-up as the JAX package times it."""
+    ``fit_large`` (config #4) runs ``fit_blockcyclic`` over the process
+    group's ranks as the JAX package runs it over its mesh (block 256 from
+    N = 4096 on, else 64): each rank holds N^2 / W of K and one N x b panel,
+    17.2 GB in float32 at N=65536 on one card, timed best of 2 after a
+    warm-up as the JAX package times it."""
     from gaussian_processes_tpu_torch import fit, predict_diag
     from gaussian_processes_tpu_torch.utils import roofline, timed, trace
 
-    def fit_fn(k, x, y):
-        return fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
+    summary = {}
+    if cfg.task == "fit_large":
+        from gaussian_processes_tpu_torch.parallel import (
+            fit_blockcyclic,
+            make_chain_mesh,
+            predict_diag_blockcyclic,
+        )
+
+        mesh = make_chain_mesh(cfg.mesh.n_devices, axis="shard", device=device)
+        block = 256 if cfg.data.n >= 4096 else 64
+        summary.update(mesh=str({"shard": mesh.world_size}), block_size=block)
+
+        def fit_fn(k, x, y):
+            return fit_blockcyclic(k, x, y, cfg.fit.noise, mesh, block_size=block,
+                                   jitter=cfg.fit.jitter)
+
+        def predict_fn(post):
+            return predict_diag_blockcyclic(post, xo, mesh)
+    else:
+        def fit_fn(k, x, y):
+            return fit(k, x, y, cfg.fit.noise, cfg.fit.jitter)
+
+        def predict_fn(post):
+            return predict_diag(post, xo)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -82,11 +108,11 @@ def _run_fit(cfg, kernel, x, y, xo, device, device_name):
         wall = timed(fit_fn, kernel, x, y, device=device,
                      **({"iters": 2} if cfg.task == "fit_large" else {}))
     post = fit_fn(kernel, x, y)
-    mean, var = predict_diag(post, xo)
+    mean, var = predict_fn(post)
     truth = np.sin(cfg.data.freq * xo.cpu().numpy())
     rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2)))
-    summary = {"fit_wall_s": wall, "log_marginal": float(post.log_marginal),
-               "pred_rmse_vs_truth": rmse, "pred_var_min": float(var.min())}
+    summary.update(fit_wall_s=wall, log_marginal=float(post.log_marginal),
+                   pred_rmse_vs_truth=rmse, pred_var_min=float(var.min()))
     if device.type == "cuda":
         summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         summary.update(roofline(cfg.data.n, wall, cfg.fit.dtype, device_name))
@@ -257,7 +283,7 @@ def run_config(cfg, device="cuda", checkpoint: str | None = None) -> dict:
         raise ValueError(f"unknown task {cfg.task!r}")
 
     device = resolve_device(device)
-    if cfg.task == "nuts_multihost":
+    if cfg.task in ("fit_large", "nuts_multihost"):
         from gaussian_processes_tpu_torch.parallel import initialize_cluster
         from gaussian_processes_tpu_torch.parallel.multihost import local_device
 

@@ -10,8 +10,9 @@ A kernel is named by its family and parameters, or by a spec: a leaf
 so that a JAX ``ProductKernel(GaussianKernel, PeriodicKernel)`` becomes
 ``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.  The structured
 operators (``KronOperator``, ``SKIOperator``, ``SKIKronOperator``), the
-Fourier feature maps, the SGPR and Laplace posteriors and the samplers'
-states (NUTS, ChEES, chain-sharded NUTS) come from their arrays as well.
+Fourier feature maps, the SGPR, Laplace and block-cyclic posteriors (one
+rank's strip) and the samplers' states (NUTS, ChEES, chain-sharded NUTS)
+come from their arrays as well.
 """
 
 from __future__ import annotations
@@ -79,6 +80,33 @@ def posterior_from_numpy(family, params, x, y, noise, L, alpha,
         x=t(x), y=t(y), noise=t(noise), L=t(L), alpha=t(alpha),
         log_marginal=t(log_marginal),
     )
+
+
+def blockcyclic_posterior_from_numpy(family, params, x, y, noise, L_blocks, alpha,
+                                     log_marginal, *, block_size, rank, world_size,
+                                     device="cpu", dtype=torch.float64):
+    """This rank's ``BlockCyclicPosterior`` from the arrays of a JAX one:
+    its global (m, m, b, b) ``L_blocks`` has the rows grouped by owner
+    (device d's rows are [d m_loc, (d + 1) m_loc)), and rank ``rank`` of
+    ``world_size`` takes its (m_loc b, m b) strip.  The kernel as in
+    ``posterior_from_numpy``."""
+    from gaussian_processes_tpu_torch.parallel.block_cholesky import BlockCyclicPosterior
+
+    blocks = np.asarray(L_blocks)
+    m, b = blocks.shape[0], blocks.shape[2]
+    if blocks.shape != (m, m, b, b) or b != block_size or m % world_size:
+        raise ValueError(f"L_blocks of shape {blocks.shape} is not ({m}, {m}, {block_size}, "
+                         f"{block_size}) with {world_size} dividing {m}")
+    m_loc = m // world_size
+    own = blocks[rank * m_loc:(rank + 1) * m_loc].transpose(0, 2, 1, 3).reshape(m_loc * b, m * b)
+
+    def t(v):
+        return _tensor(v, device, dtype)
+
+    return BlockCyclicPosterior(
+        kernel=_kernel(family, params, device, dtype), x=t(x), y=t(y), noise=t(noise),
+        L_blocks=t(own), alpha=t(alpha), log_marginal=t(log_marginal), block_size=b,
+        n_blocks=m, world_size=world_size)
 
 
 def iterative_posterior_from_numpy(family, params, x, y, noise, alpha,

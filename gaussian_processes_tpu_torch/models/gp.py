@@ -107,13 +107,17 @@ def _lml(y, alpha, L) -> torch.Tensor:
     )
 
 
-def _chol_pieces(kernel, x, y, noise, jitter):
-    Kxx = build_kxx(kernel, x, noise, jitter)
+def _factor_solve(Kxx, y):
+    """(L, alpha, lml) of the built K = ``Kxx``."""
     L = choose_cholesky(Kxx)(Kxx)
     del Kxx
     solve = choose_solve(L)
     alpha = solve(L, solve(L, y), trans=True)
     return L, alpha, _lml(y, alpha, L)
+
+
+def _chol_pieces(kernel, x, y, noise, jitter):
+    return _factor_solve(build_kxx(kernel, x, noise, jitter), y)
 
 
 def _inputs(x, y, noise):

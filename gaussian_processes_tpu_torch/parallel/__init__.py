@@ -6,9 +6,9 @@ per rank (``RankMesh``; NCCL on CUDA cards, gloo on the CPU).  Callers pass
 global inputs; each rank takes its block and results come back in the
 global view.
 
-The dense factorization across ranks (``fit_sharded``, ``make_grid_mesh``,
-``predict_diag_sharded``, ``BlockCyclicPosterior``, ``fit_blockcyclic``,
-``predict_diag_blockcyclic``) is not ported yet: ROADMAP queue A, item 2c.
+The dense factor across ranks: ``block_cholesky.py`` (block-cyclic rows,
+no rank ever holds K) and ``distributed_gp.py`` (K built in blocks over a
+2-D grid of ranks, then gathered and factored on each).
 """
 
 from gaussian_processes_tpu_torch.parallel.bayes_sharded import (
@@ -16,6 +16,17 @@ from gaussian_processes_tpu_torch.parallel.bayes_sharded import (
     make_bayes_mesh,
     make_log_posterior_iterative_datasharded,
     sample_chees_iterative_sharded,
+)
+from gaussian_processes_tpu_torch.parallel.block_cholesky import (
+    BlockCyclicPosterior,
+    fit_blockcyclic,
+    predict_diag_blockcyclic,
+)
+from gaussian_processes_tpu_torch.parallel.distributed_gp import (
+    GridMesh,
+    fit_sharded,
+    make_grid_mesh,
+    predict_diag_sharded,
 )
 from gaussian_processes_tpu_torch.parallel.iterative_sharded import (
     fit_iterative_sharded,
@@ -55,6 +66,13 @@ from gaussian_processes_tpu_torch.parallel.sharded import (
 )
 
 __all__ = [
+    "BlockCyclicPosterior",
+    "fit_blockcyclic",
+    "predict_diag_blockcyclic",
+    "GridMesh",
+    "fit_sharded",
+    "make_grid_mesh",
+    "predict_diag_sharded",
     "BayesMesh",
     "make_bayes_mesh",
     "make_log_posterior_iterative_datasharded",

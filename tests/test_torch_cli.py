@@ -119,6 +119,8 @@ def test_run_config_fit_large_matches_jax_fit():
     np.testing.assert_allclose(got["log_marginal"], float(want.log_marginal), rtol=1e-8)
     assert got["pred_rmse_vs_truth"] < 0.05 and got["fit_wall_s"] > 0
     assert "peak_memory_gb" not in got  # no device metric from a CPU run
+    # through fit_blockcyclic over a one-rank mesh, as the JAX CLI names it
+    assert got["block_size"] == 64 and got["mesh"] == "{'shard': 1}"
 
 
 def test_run_config_bayes_grid_small():
@@ -195,6 +197,7 @@ def test_package_imports_without_jax():
     code = (
         "import sys; import gaussian_processes_tpu_torch as g; "
         "import gaussian_processes_tpu_torch.cli, gaussian_processes_tpu_torch.convert; "
+        "import gaussian_processes_tpu_torch.dryrun, gaussian_processes_tpu_torch.parallel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('gaussian_processes_tpu.') or m == 'gaussian_processes_tpu']; "
         "assert not bad, bad; print('ok')"

@@ -900,3 +900,41 @@ def test_fit_large_task_on_card_matches_cpu(cuda):
     want = cli.run_config(cfg, device="cpu")
     assert got["peak_memory_gb"] > 0 and got["fit_wall_s"] > 0
     np.testing.assert_allclose(got["log_marginal"], want["log_marginal"], rtol=1e-10)
+
+
+def test_fit_blockcyclic_on_card_matches_fit(cuda):
+    """``fit_blockcyclic`` at W = 1 with no process group, float64, n = 2048
+    and b = 256 (one B1 strip, B3 under each of the 8 diagonal blocks)
+    against ``fit`` on the card, and its predictions against
+    ``predict_diag``."""
+    from gaussian_processes_tpu_torch import parallel
+
+    f64 = torch.float64
+    mesh = parallel.make_chain_mesh(axis="shard", device=cuda)
+    x = _x(2048, 7, f64, cuda)
+    y = torch.sin(2 * x) + 0.1 * _x(2048, 8, f64, cuda)
+    k = KERNELS["se"](f64, cuda)
+    _build.launch_counts.clear()
+    post = parallel.fit_blockcyclic(k, x, y, 0.2, mesh, block_size=256, jitter=1e-6)
+    assert _build.launch_counts["pairwise_k"] == 1 and _build.launch_counts["chol_tile"] == 16
+    want = gpx.fit(k, x, y, 0.2, 1e-6)
+    np.testing.assert_allclose(float(post.log_marginal), float(want.log_marginal), rtol=1e-10)
+    torch.testing.assert_close(post.alpha, want.alpha, rtol=1e-7, atol=1e-9)
+    xo = torch.linspace(-3, 3, 40, dtype=f64, device=cuda)
+    m_bc, v_bc = parallel.predict_diag_blockcyclic(post, xo, mesh)
+    m, v = gpx.predict_diag(want, xo)
+    torch.testing.assert_close(m_bc, m, rtol=1e-8, atol=1e-10)
+    torch.testing.assert_close(v_bc, v, rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b1_blockcyclic_strip_matches_plain(cuda, dtype):
+    """B1 on rank 1's (1024, 4096) strip of n = 4096 over 4 ranks, b = 256,
+    against its folded arithmetic and ``pairwise_matrix_reference``."""
+    x = _x(4096, 3, dtype, cuda)
+    x_own = x.view(4, 4, 256)[:, 1].reshape(-1)
+    k = KERNELS["se"](dtype, cuda)
+    got = tpw.pairwise_matrix(k, x_own, x)
+    assert got.shape == (1024, 4096)
+    _close(got, tpw.pairwise_matrix_folded(k, x_own, x), dtype)
+    _close(got, tpw.pairwise_matrix_reference(k, x_own, x), dtype)
