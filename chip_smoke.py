@@ -2453,8 +2453,8 @@ def check_fit_large_path(check, twin, out, launches, dev) -> dict:
           f"fit_wall_s {s['fit_wall_s']:.4f} s (best of 2 after a warm-up) against the "
           f"single-card fit's {twin['fit_wall_s']:.4f} s; peak memory {s['peak_memory_gb']:.2f} "
           f"GB against {twin['fit_peak_gb']:.2f}; lml {s['log_marginal']:.4f} against "
-          f"{twin['lml']:.4f} (rel {lml_rel:.3e}); rmse {s['pred_rmse_vs_truth']:.5f}, "
-          f"{s['fraction_of_peak']:.3f} of the float32 peak", flush=True)
+          f"{twin['lml']:.4f} (rel {lml_rel:.3e}); rmse {s['pred_rmse_vs_truth']:.5f}",
+          flush=True)
     check(f"fit-large N={n} rmse vs sin(2x)", s["pred_rmse_vs_truth"], FIT_RMSE)
     check(f"fit-large N={n} peak memory (GB, 1.25 x one float32 strip)", s["peak_memory_gb"],
           FIT_LARGE_PEAK_GB)

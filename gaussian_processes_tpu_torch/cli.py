@@ -29,7 +29,8 @@ a process group).  ``fit_large`` and
 brings up from the launcher's variables; one process is a group of one.
 Every task runs on ``cuda`` unless another device is asked for.  Each run
 emits JSONL metrics (utils/metrics.py) and an end-of-run summary line;
-``--profile-dir`` writes a ``torch.profiler`` trace of the timed part.
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the timed part
+that carries the program's ``gp.*`` spans (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
-def _run_fit(cfg, kernel, x, y, xo, device, device_name):
+def _run_fit(cfg, kernel, x, y, xo, device):
     """The exact fit (K, the blocked factor, two solves) and its predictions.
     ``fit_large`` (config #4) runs ``fit_blockcyclic`` over the process
     group's ranks as the JAX package runs it over its mesh (block 256 from
@@ -75,7 +76,7 @@ def _run_fit(cfg, kernel, x, y, xo, device, device_name):
     17.2 GB in float32 at N=65536 on one card, timed best of 2 after a
     warm-up as the JAX package times it."""
     from gaussian_processes_tpu_torch import fit, predict_diag
-    from gaussian_processes_tpu_torch.utils import roofline, timed, trace
+    from gaussian_processes_tpu_torch.utils import timed, trace
 
     summary = {}
     if cfg.task == "fit_large":
@@ -115,7 +116,6 @@ def _run_fit(cfg, kernel, x, y, xo, device, device_name):
                    pred_rmse_vs_truth=rmse, pred_var_min=float(var.min()))
     if device.type == "cuda":
         summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
-        summary.update(roofline(cfg.data.n, wall, cfg.fit.dtype, device_name))
     return summary
 
 
@@ -299,7 +299,7 @@ def run_config(cfg, device="cuda", checkpoint: str | None = None) -> dict:
             device=device_name, dtype=cfg.fit.dtype)
 
     if cfg.task in ("fit", "fit_large"):
-        summary = _run_fit(cfg, kernel, x, y, xo, device, device_name)
+        summary = _run_fit(cfg, kernel, x, y, xo, device)
     elif cfg.task == "mle":
         summary = _run_mle(cfg, kernel, x, y, device)
     elif cfg.task == "sgpr":
@@ -328,7 +328,8 @@ def main(argv=None):
     ap.add_argument("--num-warmup", type=int, default=None, help="override the warmup steps")
     ap.add_argument("--num-samples", type=int, default=None, help="override the draws")
     ap.add_argument("--metrics", default=None, help="JSONL metrics file")
-    ap.add_argument("--profile-dir", default=None, help="torch.profiler trace dir")
+    ap.add_argument("--profile-dir", default=None,
+                    help="torch.profiler Chrome trace dir; the trace carries the gp.* spans")
     ap.add_argument("--checkpoint", default=None,
                     help="nuts_multihost: base path of the per-rank checkpoints")
     args = ap.parse_args(argv)

@@ -20,7 +20,8 @@ is NaN-safe (a non-finite trajectory contributes zero; 0 * NaN once stuck
 T at NaN and collapsed trajectories to one leapfrog).
 
 The loop over transitions runs on the host; the number of leapfrogs of a
-transition is read from the device once per transition.  Randomness comes
+transition is read from the device once per transition (one
+``inference.host_syncs`` in ``utils.profiling.counts``).  Randomness comes
 from one ``torch.Generator`` in a fixed order; a chain-sharded run
 (``parallel/sharded.py``) draws the trajectory jitter from a generator every
 rank shares and the momenta from its own (``CheesState.momentum_generator``),
@@ -51,6 +52,7 @@ from gaussian_processes_tpu_torch.inference.nuts import (
     init_chain,
     value_and_grad_fn,
 )
+from gaussian_processes_tpu_torch.utils.profiling import counts, span
 
 
 def _default_reduce_vec_mean(x):
@@ -138,8 +140,9 @@ def _chees_grad(z0, z1, v1, accept_prob, u_jitter, reduce_mean=_default_reduce_m
 
 
 def _n_leapfrog(t, eps, max_leapfrog: int) -> int:
-    """clip(ceil(t / eps), 1, max_leapfrog), read on the host; a non-finite
-    ratio takes one step."""
+    """clip(ceil(t / eps), 1, max_leapfrog), read on the host (a host sync,
+    counted); a non-finite ratio takes one step."""
+    counts["inference.host_syncs"] += 1
     ratio = float(t / eps)
     if not math.isfinite(ratio):
         return 1
@@ -164,49 +167,51 @@ def chees_step(
     warmup step ``step`` of the schedule ``flags``.  The ``reduce_*`` hooks
     pool the adaptation statistics (local by default; across ranks in
     ``parallel/sharded.py``)."""
-    vg = value_and_grad_fn(log_density)
-    mom_gen = (state.momentum_generator if state.momentum_generator is not None
-               else state.generator)
-    eps = torch.exp(state.da.log_step) if adapt_traj else state.step_size
-    u_jitter = _draw(state.generator, torch.rand, (), state.traj_length)
-    n_steps = _n_leapfrog(u_jitter * state.traj_length, eps, max_leapfrog)
+    with span("gp.inference.chees_step"):
+        vg = value_and_grad_fn(log_density)
+        mom_gen = (state.momentum_generator if state.momentum_generator is not None
+                   else state.generator)
+        eps = torch.exp(state.da.log_step) if adapt_traj else state.step_size
+        u_jitter = _draw(state.generator, torch.rand, (), state.traj_length)
+        n_steps = _n_leapfrog(u_jitter * state.traj_length, eps, max_leapfrog)
 
-    z0 = state.chains.z
-    chains, z1, v1, accept, nonfinite = _hmc_trajectory(
-        vg, state.chains, mom_gen, eps, n_steps, state.inv_mass)
+        z0 = state.chains.z
+        chains, z1, v1, accept, nonfinite = _hmc_trajectory(
+            vg, state.chains, mom_gen, eps, n_steps, state.inv_mass)
 
-    da, welford, inv_mass = state.da, state.welford, state.inv_mass
-    traj_length, traj_m, traj_v = state.traj_length, state.traj_m, state.traj_v
-    traj_count, step_size = state.traj_count, state.step_size
+        da, welford, inv_mass = state.da, state.welford, state.inv_mass
+        traj_length, traj_m, traj_v = state.traj_length, state.traj_m, state.traj_v
+        traj_count, step_size = state.traj_count, state.step_size
 
-    if adapt_traj:
-        # HARMONIC mean of the chains' acceptance: dominated by the worst
-        # chains, it throttles the shared step size until every chain
-        # moves; the 1e-3 floor keeps one pathological chain from stalling
-        # adaptation outright
-        pooled_accept = 1.0 / reduce_mean(1.0 / torch.clamp(accept, min=1e-3))
-        da = adapt.da_update(da, pooled_accept, target_accept=target_accept)
+        if adapt_traj:
+            # HARMONIC mean of the chains' acceptance: dominated by the worst
+            # chains, it throttles the shared step size until every chain
+            # moves; the 1e-3 floor keeps one pathological chain from stalling
+            # adaptation outright
+            pooled_accept = 1.0 / reduce_mean(1.0 / torch.clamp(accept, min=1e-3))
+            da = adapt.da_update(da, pooled_accept, target_accept=target_accept)
 
-        # trajectory length: Adam on log T with the normalized gradient (ascent)
-        g = _chees_grad(z0, z1, v1, accept, u_jitter, reduce_mean, reduce_vec_mean)
-        g = g / (torch.abs(g) + 1e-10)
-        traj_count += 1
-        b1, b2 = 0.9, 0.999
-        traj_m = b1 * traj_m + (1 - b1) * g
-        traj_v = b2 * traj_v + (1 - b2) * g * g
-        mhat = traj_m / (1 - b1 ** traj_count)
-        vhat = traj_v / (1 - b2 ** traj_count)
-        traj_length = torch.exp(torch.log(traj_length) + adam_lr * mhat / (torch.sqrt(vhat) + 1e-8))
+            # trajectory length: Adam on log T with the normalized gradient (ascent)
+            g = _chees_grad(z0, z1, v1, accept, u_jitter, reduce_mean, reduce_vec_mean)
+            g = g / (torch.abs(g) + 1e-10)
+            traj_count += 1
+            b1, b2 = 0.9, 0.999
+            traj_m = b1 * traj_m + (1 - b1) * g
+            traj_v = b2 * traj_v + (1 - b2) * g * g
+            mhat = traj_m / (1 - b1 ** traj_count)
+            vhat = traj_v / (1 - b2 ** traj_count)
+            traj_length = torch.exp(torch.log(traj_length)
+                                    + adam_lr * mhat / (torch.sqrt(vhat) + 1e-8))
 
-        welford, da, inv_mass = adapt.adapt_window(welford, da, inv_mass, chains.z, flags, step,
-                                                   reduce_welford)
-        step_size = torch.exp(da.log_avg_step if flags["last"][step] else da.log_step)
+            welford, da, inv_mass = adapt.adapt_window(welford, da, inv_mass, chains.z, flags,
+                                                       step, reduce_welford)
+            step_size = torch.exp(da.log_avg_step if flags["last"][step] else da.log_step)
 
-    new_state = CheesState(chains=chains, da=da, welford=welford, inv_mass=inv_mass,
-                           step_size=step_size, traj_length=traj_length, traj_m=traj_m,
-                           traj_v=traj_v, traj_count=traj_count, generator=state.generator,
-                           momentum_generator=state.momentum_generator)
-    return new_state, CheesInfo(accept_prob=accept, num_leapfrog=n_steps, diverging=nonfinite)
+        new_state = CheesState(chains=chains, da=da, welford=welford, inv_mass=inv_mass,
+                               step_size=step_size, traj_length=traj_length, traj_m=traj_m,
+                               traj_v=traj_v, traj_count=traj_count, generator=state.generator,
+                               momentum_generator=state.momentum_generator)
+        return new_state, CheesInfo(accept_prob=accept, num_leapfrog=n_steps, diverging=nonfinite)
 
 
 def init_chees_state(log_density, init_position, generator, *, init_step_size: float = 0.1,

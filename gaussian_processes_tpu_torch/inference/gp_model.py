@@ -33,6 +33,7 @@ import torch
 from gaussian_processes_tpu_torch.models.base import Kernel
 from gaussian_processes_tpu_torch.models.gp import _LOG_2PI, log_marginal_value_and_grad_chains
 from gaussian_processes_tpu_torch.ops import krylov
+from gaussian_processes_tpu_torch.utils.profiling import counts, span
 
 #: seed of the iterative posterior's frozen probes (the JAX package's key)
 PROBE_SEED = 20240817
@@ -62,12 +63,15 @@ class LogDensity:
         self._vg = value_and_grad_chains
 
     def value_and_grad(self, u):
-        """(value, d value / du) for u of shape (D,) or (C, D), no graph."""
-        u = torch.as_tensor(u).detach()
-        if u.ndim == 2:
-            return self._vg(u)
-        value, grad = self._vg(u[None])
-        return value[0], grad[0]
+        """(value, d value / du) for u of shape (D,) or (C, D), no graph;
+        counted as ``core.value_and_grad`` in ``utils.profiling.counts``."""
+        counts["core.value_and_grad"] += 1
+        with span("gp.core.value_and_grad"):
+            u = torch.as_tensor(u).detach()
+            if u.ndim == 2:
+                return self._vg(u)
+            value, grad = self._vg(u[None])
+            return value[0], grad[0]
 
     def __call__(self, u):
         return _LogDensityFn.apply(torch.as_tensor(u), self)

@@ -12,7 +12,8 @@ once (``log_density.value_and_grad`` on (C, D): on a card one B1 launch,
 one batched blocked factor over B3, one B2a launch), and per-chain masks
 freeze the chains whose subtree or tree has finished, diverged or turned.
 A loop ends when no chain is active, which reads one flag from the device
-per leaf.
+per leaf and per depth; each read counts one ``inference.host_syncs`` in
+``utils.profiling.counts``.
 
 * **Checkpoints.** Within a subtree, leaf ``i`` (0-indexed) is stored at
   slot ``popcount(i)`` when ``i`` is even; a complete sub-subtree of size
@@ -43,6 +44,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from gaussian_processes_tpu_torch.inference import adaptation as adapt
+from gaussian_processes_tpu_torch.utils.profiling import counts, span
 
 
 class ChainState(NamedTuple):
@@ -143,6 +145,7 @@ def _build_subtree(vg, depth: int, edge, active, eps, inv_mass, energy0, max_dep
     ckpt_r = z0.new_zeros((C, max_depth + 1, D))
     for i in range(1 << depth):
         live = active & ~s.turning & ~s.diverging
+        counts["inference.host_syncs"] += 1
         if not bool(live.any()):
             break
         u = _draw(generator, torch.rand, (C,), logp0)
@@ -192,65 +195,67 @@ def nuts_transition(
 ):
     """One NUTS transition of every chain of ``state`` (positions (C, D)),
     in lockstep."""
-    vg = value_and_grad_fn(log_density)
-    z = state.z
-    dtype = z.dtype
-    eps = torch.as_tensor(step_size, dtype=dtype, device=z.device)
-    inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=z.device).expand(z.shape[1:])
-    C = z.shape[0]
+    with span("gp.inference.nuts_transition"):
+        vg = value_and_grad_fn(log_density)
+        z = state.z
+        dtype = z.dtype
+        eps = torch.as_tensor(step_size, dtype=dtype, device=z.device)
+        inv_mass = torch.as_tensor(inv_mass, dtype=dtype, device=z.device).expand(z.shape[1:])
+        C = z.shape[0]
 
-    # r ~ N(0, M) with M^-1 = inv_mass (diagonal)
-    r0 = _draw(generator, torch.randn, z.shape, z) / torch.sqrt(inv_mass)
-    energy0 = -state.logp + _kinetic(r0, inv_mass)
+        # r ~ N(0, M) with M^-1 = inv_mass (diagonal)
+        r0 = _draw(generator, torch.randn, z.shape, z) / torch.sqrt(inv_mass)
+        energy0 = -state.logp + _kinetic(r0, inv_mass)
 
-    z_b, r_b, g_b, lp_b = z, -r0, state.grad, state.logp  # backward edge, momentum negated
-    z_f, r_f, g_f, lp_f = z, r0, state.grad, state.logp
-    z_p, lp_p, g_p = z, state.logp, state.grad
-    lsw = torch.zeros_like(state.logp)  # the initial point has log weight 0
-    depth = torch.zeros(C, dtype=torch.int64, device=z.device)
-    turning = torch.zeros(C, dtype=torch.bool, device=z.device)
-    diverging = torch.zeros_like(turning)
-    sum_acc = torch.zeros_like(state.logp)
-    n_leaves = torch.zeros_like(depth)
+        z_b, r_b, g_b, lp_b = z, -r0, state.grad, state.logp  # backward edge, momentum negated
+        z_f, r_f, g_f, lp_f = z, r0, state.grad, state.logp
+        z_p, lp_p, g_p = z, state.logp, state.grad
+        lsw = torch.zeros_like(state.logp)  # the initial point has log weight 0
+        depth = torch.zeros(C, dtype=torch.int64, device=z.device)
+        turning = torch.zeros(C, dtype=torch.bool, device=z.device)
+        diverging = torch.zeros_like(turning)
+        sum_acc = torch.zeros_like(state.logp)
+        n_leaves = torch.zeros_like(depth)
 
-    for d in range(max_depth):
-        active = ~turning & ~diverging
-        if not bool(active.any()):
-            break
-        go_fwd = _draw(generator, torch.rand, (C,), z) < 0.5
-        merge_u = _draw(generator, torch.rand, (C,), z)
-        edge = (_where(go_fwd, z_f, z_b), _where(go_fwd, r_f, r_b),
-                _where(go_fwd, g_f, g_b), _where(go_fwd, lp_f, lp_b))
-        sub = _build_subtree(vg, d, edge, active, eps, inv_mass, energy0, max_depth,
-                             max_delta_energy, generator)
-        ok = active & ~sub.turning & ~sub.diverging
+        for d in range(max_depth):
+            active = ~turning & ~diverging
+            counts["inference.host_syncs"] += 1
+            if not bool(active.any()):
+                break
+            go_fwd = _draw(generator, torch.rand, (C,), z) < 0.5
+            merge_u = _draw(generator, torch.rand, (C,), z)
+            edge = (_where(go_fwd, z_f, z_b), _where(go_fwd, r_f, r_b),
+                    _where(go_fwd, g_f, g_b), _where(go_fwd, lp_f, lp_b))
+            sub = _build_subtree(vg, d, edge, active, eps, inv_mass, energy0, max_depth,
+                                 max_delta_energy, generator)
+            ok = active & ~sub.turning & ~sub.diverging
 
-        # extend the chosen edge only when the subtree completed
-        upd_f, upd_b = ok & go_fwd, ok & ~go_fwd
-        z_f, r_f = _where(upd_f, sub.z_e, z_f), _where(upd_f, sub.r_e, r_f)
-        g_f, lp_f = _where(upd_f, sub.grad_e, g_f), _where(upd_f, sub.logp_e, lp_f)
-        z_b, r_b = _where(upd_b, sub.z_e, z_b), _where(upd_b, sub.r_e, r_b)
-        g_b, lp_b = _where(upd_b, sub.grad_e, g_b), _where(upd_b, sub.logp_e, lp_b)
+            # extend the chosen edge only when the subtree completed
+            upd_f, upd_b = ok & go_fwd, ok & ~go_fwd
+            z_f, r_f = _where(upd_f, sub.z_e, z_f), _where(upd_f, sub.r_e, r_f)
+            g_f, lp_f = _where(upd_f, sub.grad_e, g_f), _where(upd_f, sub.logp_e, lp_f)
+            z_b, r_b = _where(upd_b, sub.z_e, z_b), _where(upd_b, sub.r_e, r_b)
+            g_b, lp_b = _where(upd_b, sub.grad_e, g_b), _where(upd_b, sub.logp_e, lp_b)
 
-        # biased progressive proposal swap
-        p_take = torch.clamp(torch.exp(sub.lsw - lsw), max=1.0)
-        take = ok & (merge_u < p_take)
-        z_p, lp_p, g_p = _where(take, sub.z_p, z_p), _where(take, sub.logp_p, lp_p), \
-            _where(take, sub.grad_p, g_p)
-        lsw = _where(ok, torch.logaddexp(lsw, sub.lsw), lsw)
+            # biased progressive proposal swap
+            p_take = torch.clamp(torch.exp(sub.lsw - lsw), max=1.0)
+            take = ok & (merge_u < p_take)
+            z_p, lp_p, g_p = _where(take, sub.z_p, z_p), _where(take, sub.logp_p, lp_p), \
+                _where(take, sub.grad_p, g_p)
+            lsw = _where(ok, torch.logaddexp(lsw, sub.lsw), lsw)
 
-        # cross-tree U-turn over the full extended trajectory
-        cross = _uturn(z_f - z_b, -r_b, r_f, inv_mass)
-        turning = turning | (active & sub.turning) | (ok & cross)
-        diverging = diverging | (active & sub.diverging)
-        sum_acc = sum_acc + sub.sum_acc
-        n_leaves = n_leaves + sub.n_leaves
-        depth = depth + active.to(depth.dtype)
+            # cross-tree U-turn over the full extended trajectory
+            cross = _uturn(z_f - z_b, -r_b, r_f, inv_mass)
+            turning = turning | (active & sub.turning) | (ok & cross)
+            diverging = diverging | (active & sub.diverging)
+            sum_acc = sum_acc + sub.sum_acc
+            n_leaves = n_leaves + sub.n_leaves
+            depth = depth + active.to(depth.dtype)
 
-    nl = torch.clamp(n_leaves, min=1)
-    info = TransitionInfo(accept_prob=sum_acc / nl.to(dtype), num_leapfrog=n_leaves,
-                          diverging=diverging, turning=turning, depth=depth, energy=-lp_p)
-    return ChainState(z=z_p, logp=lp_p, grad=g_p), info
+        nl = torch.clamp(n_leaves, min=1)
+        info = TransitionInfo(accept_prob=sum_acc / nl.to(dtype), num_leapfrog=n_leaves,
+                              diverging=diverging, turning=turning, depth=depth, energy=-lp_p)
+        return ChainState(z=z_p, logp=lp_p, grad=g_p), info
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 the Krylov solvers of the matrix-free path (``ops.krylov``) and the
 structured-grid operators (``ops.toeplitz``, ``ops.kronecker``, ``ops.ski``).
 
-``launch_counts`` counts the launches of each kernel wrapper.
+``launch_counts`` counts the launches of each kernel wrapper; it is
+``utils.profiling.counts``, which also holds the program's dotted counters.
 """
 
 from gaussian_processes_tpu_torch.ops._build import launch_counts

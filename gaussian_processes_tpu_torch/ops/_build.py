@@ -18,7 +18,6 @@ count).  Each wrapper counts its launches in ``launch_counts``.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import hashlib
@@ -30,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from gaussian_processes_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -39,8 +40,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-#: launches per kernel wrapper, incremented only where a kernel is launched
-launch_counts: collections.Counter = collections.Counter()
+#: launches per kernel wrapper, incremented only where a kernel is launched;
+#: the package's one counter, ``utils.profiling.counts``
+launch_counts = profiling.counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -49,6 +49,7 @@ from gaussian_processes_tpu_torch.models.gp import _LOG_2PI
 from gaussian_processes_tpu_torch.ops.blocked_cholesky import cholesky_blocked
 from gaussian_processes_tpu_torch.ops.pairwise import pairwise_matrix
 from gaussian_processes_tpu_torch.parallel.mesh import RankMesh
+from gaussian_processes_tpu_torch.utils.profiling import span
 
 #: GEMMs per trailing update; the staircase covers (1 + 1 / pieces) times
 #: the lower triangle's area
@@ -103,49 +104,51 @@ def _diagonal(S: torch.Tensor, rank: int, world: int, b: int) -> torch.Tensor:
 
 def _build_strip(kernel, x_pad, n, b, m, noise, jitter, rank, world) -> torch.Tensor:
     """This rank's rows of K + (s^2 + jitter) I with identity padding."""
-    m_loc = m // world
-    x_own = x_pad.view(m_loc, world, b)[:, rank].reshape(-1)
-    # the JAX package falls back to kernel(x_own, x_pad) on TypeError; here
-    # Kernel.forward is pairwise_matrix, so such a kernel raises either way
-    S = pairwise_matrix(kernel, x_own, x_pad)
-    S[:, n:].zero_()
-    # only the last local block can hold padded rows: the padding is shorter
-    # than W blocks, which belong to W different ranks
-    first = n - (rank + (m_loc - 1) * world) * b
-    if first < b:
-        S[(m_loc - 1) * b + max(first, 0):].zero_()
-    g = rank + torch.arange(m_loc, device=S.device) * world
-    valid = (g[:, None] * b + torch.arange(b, device=S.device)) < n
-    _diagonal(S, rank, world, b).add_(torch.where(valid, torch.square(noise) + jitter, 1.0))
-    return S
+    with span("gp.factor.build_strip"):
+        m_loc = m // world
+        x_own = x_pad.view(m_loc, world, b)[:, rank].reshape(-1)
+        # the JAX package falls back to kernel(x_own, x_pad) on TypeError; here
+        # Kernel.forward is pairwise_matrix, so such a kernel raises either way
+        S = pairwise_matrix(kernel, x_own, x_pad)
+        S[:, n:].zero_()
+        # only the last local block can hold padded rows: the padding is shorter
+        # than W blocks, which belong to W different ranks
+        first = n - (rank + (m_loc - 1) * world) * b
+        if first < b:
+            S[(m_loc - 1) * b + max(first, 0):].zero_()
+        g = rank + torch.arange(m_loc, device=S.device) * world
+        valid = (g[:, None] * b + torch.arange(b, device=S.device)) < n
+        _diagonal(S, rank, world, b).add_(torch.where(valid, torch.square(noise) + jitter, 1.0))
+        return S
 
 
 def _factor(S: torch.Tensor, mesh: RankMesh, m: int, b: int) -> None:
     """Right-looking block-cyclic Cholesky of the strip, in place."""
-    world, rank = mesh.world_size, mesh.rank
-    m_loc = m // world
-    for k in range(m):
-        kc = slice(k * b, (k + 1) * b)
-        mine, l_k = k % world == rank, k // world
-        diag = S[l_k * b:(l_k + 1) * b, kc]
-        Lkk = cholesky_blocked(mesh.psum(diag if mine else S.new_zeros(b, b)))
-        if mine:
-            diag.copy_(Lkk)
-        # the owned rows strictly below k: local blocks l >= l0
-        l0 = (k - rank) // world + 1
-        panel = S[l0 * b:, kc]
-        if panel.shape[0]:
-            panel.copy_(torch.linalg.solve_triangular(Lkk.mT, panel, upper=True, left=False))
-        # every rank sends its blocks l >= lg (those of some rank lie below
-        # k), zeroing the one (l0 - lg <= 1) at or above k
-        lg = (k + 1) // world
-        if lg == m_loc:  # k = m - 1: nothing below
-            break
-        send = S[lg * b:, kc].clone()
-        send[:(l0 - lg) * b] = 0
-        gathered = mesh.all_gather(send).view(world, m_loc - lg, b, b)
-        below = gathered.transpose(0, 1).reshape(-1, b)[(k + 1 - lg * world) * b:]
-        _staircase(S, panel, below, k, l0, rank, world, b)
+    with span("gp.factor.cholesky"):
+        world, rank = mesh.world_size, mesh.rank
+        m_loc = m // world
+        for k in range(m):
+            kc = slice(k * b, (k + 1) * b)
+            mine, l_k = k % world == rank, k // world
+            diag = S[l_k * b:(l_k + 1) * b, kc]
+            Lkk = cholesky_blocked(mesh.psum(diag if mine else S.new_zeros(b, b)))
+            if mine:
+                diag.copy_(Lkk)
+            # the owned rows strictly below k: local blocks l >= l0
+            l0 = (k - rank) // world + 1
+            panel = S[l0 * b:, kc]
+            if panel.shape[0]:
+                panel.copy_(torch.linalg.solve_triangular(Lkk.mT, panel, upper=True, left=False))
+            # every rank sends its blocks l >= lg (those of some rank lie below
+            # k), zeroing the one (l0 - lg <= 1) at or above k
+            lg = (k + 1) // world
+            if lg == m_loc:  # k = m - 1: nothing below
+                break
+            send = S[lg * b:, kc].clone()
+            send[:(l0 - lg) * b] = 0
+            gathered = mesh.all_gather(send).view(world, m_loc - lg, b, b)
+            below = gathered.transpose(0, 1).reshape(-1, b)[(k + 1 - lg * world) * b:]
+            _staircase(S, panel, below, k, l0, rank, world, b)
 
 
 def _staircase(S, panel, below, k, l0, rank, world, b) -> None:
@@ -163,38 +166,40 @@ def _staircase(S, panel, below, k, l0, rank, world, b) -> None:
 
 def _forward_solve(S, rhs, mesh: RankMesh, m: int, b: int) -> torch.Tensor:
     """L Y = rhs for the (n_pad, r) right-hand side, replicated."""
-    world, rank = mesh.world_size, mesh.rank
-    Y = rhs.clone()
-    r = Y.shape[1]
-    for k in range(m):
-        kc = slice(k * b, (k + 1) * b)
-        buf = Y.new_zeros(b, b + r)  # [L_kk | sum_{j<k} L_kj Y_j], from the owner
-        if k % world == rank:
-            row = S[(k // world) * b:(k // world + 1) * b]
-            buf[:, :b] = row[:, kc]
-            buf[:, b:] = row[:, :k * b] @ Y[:k * b]
-        buf = mesh.psum(buf)
-        Y[kc] = torch.linalg.solve_triangular(buf[:, :b], Y[kc] - buf[:, b:], upper=False)
-    return Y
+    with span("gp.solve.forward"):
+        world, rank = mesh.world_size, mesh.rank
+        Y = rhs.clone()
+        r = Y.shape[1]
+        for k in range(m):
+            kc = slice(k * b, (k + 1) * b)
+            buf = Y.new_zeros(b, b + r)  # [L_kk | sum_{j<k} L_kj Y_j], from the owner
+            if k % world == rank:
+                row = S[(k // world) * b:(k // world + 1) * b]
+                buf[:, :b] = row[:, kc]
+                buf[:, b:] = row[:, :k * b] @ Y[:k * b]
+            buf = mesh.psum(buf)
+            Y[kc] = torch.linalg.solve_triangular(buf[:, :b], Y[kc] - buf[:, b:], upper=False)
+        return Y
 
 
 def _backward_solve(S, Ybar, mesh: RankMesh, m: int, b: int) -> torch.Tensor:
     """L^T Z = Ybar from the bottom; each rank sums its owned rows below k."""
-    world, rank = mesh.world_size, mesh.rank
-    Z = Ybar.clone()
-    r = Z.shape[1]
-    Z_own = Z.view(m // world, world, b, r)[:, rank]
-    for k in reversed(range(m)):
-        kc = slice(k * b, (k + 1) * b)
-        buf = Z.new_zeros(b, b + r)  # [L_kk from the owner | sum_{g>k} L_gk^T Z_g]
-        if k % world == rank:
-            buf[:, :b] = S[(k // world) * b:(k // world + 1) * b, kc]
-        l0 = (k - rank) // world + 1
-        if l0 < Z_own.shape[0]:
-            buf[:, b:] = S[l0 * b:, kc].mT @ Z_own[l0:].reshape(-1, r)
-        buf = mesh.psum(buf)
-        Z[kc] = torch.linalg.solve_triangular(buf[:, :b].mT, Z[kc] - buf[:, b:], upper=True)
-    return Z
+    with span("gp.solve.backward"):
+        world, rank = mesh.world_size, mesh.rank
+        Z = Ybar.clone()
+        r = Z.shape[1]
+        Z_own = Z.view(m // world, world, b, r)[:, rank]
+        for k in reversed(range(m)):
+            kc = slice(k * b, (k + 1) * b)
+            buf = Z.new_zeros(b, b + r)  # [L_kk from the owner | sum_{g>k} L_gk^T Z_g]
+            if k % world == rank:
+                buf[:, :b] = S[(k // world) * b:(k // world + 1) * b, kc]
+            l0 = (k - rank) // world + 1
+            if l0 < Z_own.shape[0]:
+                buf[:, b:] = S[l0 * b:, kc].mT @ Z_own[l0:].reshape(-1, r)
+            buf = mesh.psum(buf)
+            Z[kc] = torch.linalg.solve_triangular(buf[:, :b].mT, Z[kc] - buf[:, b:], upper=True)
+        return Z
 
 
 def fit_blockcyclic(
@@ -211,26 +216,27 @@ def fit_blockcyclic(
     N^2 / W strip and one N x b panel.  Called by every rank of ``mesh``
     with the global 1-D ``x``, ``y`` and a scalar ``noise``; runs on the
     mesh's device.  Matches ``models.gp.fit`` to round-off."""
-    _check_mesh(mesh, axis)
-    x = torch.as_tensor(x).to(mesh.device)
-    y = torch.as_tensor(y, dtype=x.dtype).to(mesh.device)
-    noise = torch.as_tensor(noise, dtype=x.dtype).to(mesh.device)
-    if x.ndim != 1 or y.shape != x.shape or noise.ndim != 0:
-        raise ValueError("fit_blockcyclic takes 1-D x, y of its shape and a scalar noise, got "
-                         f"x {tuple(x.shape)}, y {tuple(y.shape)}, noise {tuple(noise.shape)}")
-    n, b, world = x.shape[0], block_size, mesh.world_size
-    m, n_pad = _padded_dims(n, world, b)
-    x_pad, y_pad = x.new_zeros(n_pad), y.new_zeros(n_pad)
-    x_pad[:n], y_pad[:n] = x, y
+    with span("gp.entry.fit_blockcyclic"):
+        _check_mesh(mesh, axis)
+        x = torch.as_tensor(x).to(mesh.device)
+        y = torch.as_tensor(y, dtype=x.dtype).to(mesh.device)
+        noise = torch.as_tensor(noise, dtype=x.dtype).to(mesh.device)
+        if x.ndim != 1 or y.shape != x.shape or noise.ndim != 0:
+            raise ValueError("fit_blockcyclic takes 1-D x, y of its shape and a scalar noise, got "
+                             f"x {tuple(x.shape)}, y {tuple(y.shape)}, noise {tuple(noise.shape)}")
+        n, b, world = x.shape[0], block_size, mesh.world_size
+        m, n_pad = _padded_dims(n, world, b)
+        x_pad, y_pad = x.new_zeros(n_pad), y.new_zeros(n_pad)
+        x_pad[:n], y_pad[:n] = x, y
 
-    S = _build_strip(kernel, x_pad, n, b, m, noise, jitter, mesh.rank, world)
-    _factor(S, mesh, m, b)
-    logdet = mesh.psum(torch.sum(torch.log(_diagonal(S, mesh.rank, world, b))))
-    ybar = _forward_solve(S, y_pad[:, None], mesh, m, b)
-    alpha = _backward_solve(S, ybar, mesh, m, b)[:n, 0]
-    lml = -0.5 * torch.dot(y, alpha) - logdet - 0.5 * n * _LOG_2PI
-    return BlockCyclicPosterior(kernel=kernel, x=x, y=y, noise=noise, L_blocks=S, alpha=alpha,
-                                log_marginal=lml, block_size=b, n_blocks=m, world_size=world)
+        S = _build_strip(kernel, x_pad, n, b, m, noise, jitter, mesh.rank, world)
+        _factor(S, mesh, m, b)
+        logdet = mesh.psum(torch.sum(torch.log(_diagonal(S, mesh.rank, world, b))))
+        ybar = _forward_solve(S, y_pad[:, None], mesh, m, b)
+        alpha = _backward_solve(S, ybar, mesh, m, b)[:n, 0]
+        lml = -0.5 * torch.dot(y, alpha) - logdet - 0.5 * n * _LOG_2PI
+        return BlockCyclicPosterior(kernel=kernel, x=x, y=y, noise=noise, L_blocks=S, alpha=alpha,
+                                    log_marginal=lml, block_size=b, n_blocks=m, world_size=world)
 
 
 def predict_diag_blockcyclic(post: BlockCyclicPosterior, xo, mesh: RankMesh,
@@ -240,15 +246,16 @@ def predict_diag_blockcyclic(post: BlockCyclicPosterior, xo, mesh: RankMesh,
     The mean needs only alpha (one (r, n) product); the variance runs the
     blocked forward substitution with the r cross-covariance columns as its
     right-hand side.  Called by every rank of the mesh the fit ran on."""
-    _check_mesh(mesh, axis)
-    if mesh.world_size != post.world_size:
-        raise ValueError(f"the posterior was fitted over {post.world_size} ranks; the mesh "
-                         f"has {mesh.world_size}")
-    xo = torch.as_tensor(xo, dtype=post.x.dtype).to(post.x.device)
-    n, b, m = post.x.shape[0], post.block_size, post.n_blocks
-    Kxox = post.kernel(xo, post.x)
-    mean = Kxox @ post.alpha
-    rhs = Kxox.new_zeros(m * b, xo.shape[0])
-    rhs[:n] = Kxox.T
-    v = _forward_solve(post.L_blocks, rhs, mesh, m, b)[:n]
-    return mean, post.kernel.kdiag(xo) - torch.sum(v * v, dim=0)
+    with span("gp.entry.predict_diag_blockcyclic"):
+        _check_mesh(mesh, axis)
+        if mesh.world_size != post.world_size:
+            raise ValueError(f"the posterior was fitted over {post.world_size} ranks; the mesh "
+                             f"has {mesh.world_size}")
+        xo = torch.as_tensor(xo, dtype=post.x.dtype).to(post.x.device)
+        n, b, m = post.x.shape[0], post.block_size, post.n_blocks
+        Kxox = post.kernel(xo, post.x)
+        mean = Kxox @ post.alpha
+        rhs = Kxox.new_zeros(m * b, xo.shape[0])
+        rhs[:n] = Kxox.T
+        v = _forward_solve(post.L_blocks, rhs, mesh, m, b)[:n]
+        return mean, post.kernel.kdiag(xo) - torch.sum(v * v, dim=0)

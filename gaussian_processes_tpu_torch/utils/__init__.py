@@ -19,13 +19,7 @@ from gaussian_processes_tpu_torch.utils.device import (
     resolve_device,
 )
 from gaussian_processes_tpu_torch.utils.metrics import MetricsLogger, summarize_nuts
-from gaussian_processes_tpu_torch.utils.profiling import (
-    fit_flops,
-    peak_flops,
-    roofline,
-    timed,
-    trace,
-)
+from gaussian_processes_tpu_torch.utils.profiling import timed, trace
 
 __all__ = [
     "CONFIGS",
@@ -42,9 +36,6 @@ __all__ = [
     "resolve_device",
     "MetricsLogger",
     "summarize_nuts",
-    "fit_flops",
-    "peak_flops",
-    "roofline",
     "timed",
     "trace",
     "load_pytree",

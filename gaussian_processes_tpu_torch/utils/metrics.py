@@ -11,7 +11,6 @@ from __future__ import annotations
 import json
 import sys
 import time
-from contextlib import contextmanager
 from typing import IO, Optional
 
 
@@ -31,16 +30,6 @@ class MetricsLogger:
         if self._stream:
             print(line, file=self._stream, flush=True)
         return rec
-
-    @contextmanager
-    def phase(self, name: str, **fields):
-        """Wall-clock a phase; emits ``{event: phase, name, wall_s}``."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.log("phase", name=name, wall_s=round(time.perf_counter() - t0, 6),
-                     **fields)
 
     def close(self):
         if self._file:

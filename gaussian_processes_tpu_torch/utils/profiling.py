@@ -1,18 +1,31 @@
-"""Timing, tracing and roofline accounting.
+"""Timing, tracing and the program's counters.
 
-Counterpart of ``gaussian_processes_tpu/utils/profiling.py``:
+Counterpart of ``gaussian_processes_tpu/utils/profiling.py``, and the
+package's one place for tracing:
 
+* ``counts`` — the package's one ``collections.Counter``, always on.  Kernel
+  wrappers count their launches under the kernel's name (``pairwise_k``,
+  ``chol_tile``, ...; ``ops.launch_counts`` is this object), the program its
+  events under dotted names: ``inference.host_syncs`` (each read of a device
+  value to the host in the samplers), ``core.value_and_grad`` (each batched
+  log-density evaluation).  A counter adds a Python int and never reads a
+  tensor.
+* ``span`` — a named range of the program, ``gp.<layer>.<what>``, on the
+  profiler's clock, which the device events share.  Spans are off unless
+  ``spans_enabled`` or ``trace`` turns them on: an off span is a flag test
+  and one shared do-nothing context, with no torch call (a
+  ``record_function`` costs microseconds even with no profiler running).
+  No span sits inside a per-block or per-leaf loop.
+* ``trace`` — a ``torch.profiler`` trace of the enclosed block with the
+  spans on, written as a Chrome trace.
 * ``timed`` — best-of wall time of a call.  On a CUDA device it brackets the
   call with CUDA events after ``torch.cuda.synchronize()``; on the CPU it
   reads the host clock, and the caller labels the result with the device.
-* ``trace`` — a ``torch.profiler`` trace of the enclosed block, written as a
-  Chrome trace.
-* ``roofline`` — achieved FLOP/s of an exact-GP fit against the data-sheet
-  peak of the card, keyed by the name the card reports.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -20,29 +33,36 @@ from typing import Optional
 
 import torch
 
-#: NVIDIA H100 data-sheet dense peaks, FLOP/s.  Float32 runs outside the
-#: tensor cores (TF32 is off, utils/device.py); float64 GEMMs use the FP64
-#: tensor cores.
-H100_PEAK_FLOPS = {
-    "H100 SXM": {"float32": 67e12, "float64": 67e12},
-    "H100 NVL": {"float32": 60e12, "float64": 60e12},
-    "H100 PCIe": {"float32": 51e12, "float64": 51e12},
-}
+#: kernel launches by kernel name and program events by dotted name
+counts: collections.Counter = collections.Counter()
+
+_OFF = contextlib.nullcontext()
+_spans_on = False
 
 
-def peak_flops(device_name: str, dtype: str = "float32") -> Optional[float]:
-    """Data-sheet peak of the named card for ``dtype``; None if unknown."""
-    if "H100" not in device_name:
-        return None
-    for part in ("PCIe", "NVL"):
-        if part in device_name:
-            return H100_PEAK_FLOPS[f"H100 {part}"][dtype]
-    return H100_PEAK_FLOPS["H100 SXM"][dtype]
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while spans are on, else
+    one shared context that does nothing."""
+    if not _spans_on:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans_enabled(flag: bool = True):
+    """Turn the program's spans on (or off) for the enclosed block."""
+    global _spans_on
+    before, _spans_on = _spans_on, bool(flag)
+    try:
+        yield
+    finally:
+        _spans_on = before
 
 
 @contextlib.contextmanager
 def trace(profile_dir: Optional[str]):
-    """Chrome trace of the enclosed block in ``profile_dir`` (no-op if None)."""
+    """Chrome trace of the enclosed block, the program's ``gp.*`` spans on,
+    in ``profile_dir/trace.json`` (no-op if None)."""
     if not profile_dir:
         yield
         return
@@ -50,28 +70,9 @@ def trace(profile_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, spans_enabled():
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-
-
-def fit_flops(n: int) -> float:
-    """FLOPs of one exact-GP fit: n^2 kernel build (~10 flops/elem) +
-    n^3/3 Cholesky + 2n^2 solves."""
-    return 10.0 * n * n + n ** 3 / 3.0 + 2.0 * n * n
-
-
-def roofline(n: int, wall_s: float, dtype: str, device_name: str) -> dict:
-    """Achieved vs peak FLOP/s for an N-point fit on the named card."""
-    achieved = fit_flops(n) / wall_s
-    peak = peak_flops(device_name, dtype)
-    return {
-        "n": n,
-        "wall_s": wall_s,
-        "achieved_flops": achieved,
-        "peak_flops": peak,
-        "fraction_of_peak": None if peak is None else achieved / peak,
-    }
 
 
 def timed(fn, *args, device, warmup: int = 1, iters: int = 3) -> float:

@@ -14,7 +14,6 @@ from gaussian_processes_tpu import cli as jcli
 from gaussian_processes_tpu.utils import config as jconfig
 from gaussian_processes_tpu_torch import cli as tcli
 from gaussian_processes_tpu_torch.utils import config as tconfig
-from gaussian_processes_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -183,14 +182,6 @@ def test_cuda_request_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.run_config(tconfig.CONFIGS["config1_fit_se500"], device="cuda")
-
-
-def test_roofline_keys_on_card_name():
-    assert profiling.peak_flops("NVIDIA H100 80GB HBM3", "float32") == 67e12
-    assert profiling.peak_flops("NVIDIA H100 PCIe", "float32") == 51e12
-    assert profiling.peak_flops("cpu") is None
-    r = profiling.roofline(16384, 0.1, "float32", "NVIDIA H100 80GB HBM3")
-    assert r["fraction_of_peak"] == pytest.approx(profiling.fit_flops(16384) / 0.1 / 67e12)
 
 
 def test_package_imports_without_jax():
