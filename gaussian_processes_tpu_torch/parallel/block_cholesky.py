@@ -33,9 +33,14 @@ synchronisation inside it:
 
 The log-determinant is the ``psum`` of the owned diagonal blocks' log
 diagonals; alpha = K^-1 y and the predictive variance's L^-1 K(x, xo) come
-from blocked substitutions with one ``psum`` a step (the owner's L_kk and
-every rank's partial sum travel together).  Float32 products run in full
-float32 (the package's precision policy, utils/device.py).
+from blocked substitutions.  Each solve first inverts this rank's diagonal
+blocks (``_diagonal_inverses``, a few batched launches), so every step is
+GEMMs: Y_k = L_kk^-1 rhs_k - L_kk^-1 (sum_{j<k} L_kj Y_j), the first term
+for all owned blocks in one batched product up front, the second two GEMMs
+a step.  Across ranks a step takes one ``psum``: of the owner's Y_k going
+forward, of the owner's L_kk^-T beside every rank's partial sum going back.
+Float32 products run in full float32 (the package's precision policy,
+utils/device.py).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from gaussian_processes_tpu_torch.models.gp import _LOG_2PI
 from gaussian_processes_tpu_torch.ops.blocked_cholesky import cholesky_blocked
 from gaussian_processes_tpu_torch.ops.pairwise import pairwise_matrix
 from gaussian_processes_tpu_torch.parallel.mesh import RankMesh
-from gaussian_processes_tpu_torch.utils.profiling import span
+from gaussian_processes_tpu_torch.utils.profiling import counts, span
 
 #: GEMMs per trailing update; the staircase covers (1 + 1 / pieces) times
 #: the lower triangle's area
@@ -94,11 +99,11 @@ def _check_mesh(mesh: RankMesh, axis: str) -> None:
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
 
 
-def _diagonal(S: torch.Tensor, rank: int, world: int, b: int) -> torch.Tensor:
-    """The (m_loc, b) view of the global diagonal on the strip's rows: entry
-    (l, a) is S[l b + a, (rank + l W) b + a]."""
+def _diagonal_blocks(S: torch.Tensor, rank: int, world: int, b: int) -> torch.Tensor:
+    """The (m_loc, b, b) view of the strip's blocks on the global diagonal:
+    block l is S[l b:(l + 1) b, g b:(g + 1) b] with g = rank + l W."""
     rows, n_pad = S.shape
-    return S.as_strided((rows // b, b), (b * n_pad + world * b, n_pad + 1),
+    return S.as_strided((rows // b, b, b), (b * n_pad + world * b, n_pad, 1),
                         S.storage_offset() + rank * b)
 
 
@@ -118,7 +123,8 @@ def _build_strip(kernel, x_pad, n, b, m, noise, jitter, rank, world) -> torch.Te
             S[(m_loc - 1) * b + max(first, 0):].zero_()
         g = rank + torch.arange(m_loc, device=S.device) * world
         valid = (g[:, None] * b + torch.arange(b, device=S.device)) < n
-        _diagonal(S, rank, world, b).add_(torch.where(valid, torch.square(noise) + jitter, 1.0))
+        _diagonal_blocks(S, rank, world, b).diagonal(dim1=1, dim2=2).add_(
+            torch.where(valid, torch.square(noise) + jitter, 1.0))
         return S
 
 
@@ -164,21 +170,51 @@ def _staircase(S, panel, below, k, l0, rank, world, b) -> None:
                                        below[:c1 - c0].mT, alpha=-1.0)
 
 
+def _diagonal_inverses(S: torch.Tensor, rank: int, world: int, b: int) -> torch.Tensor:
+    """(m_loc, b, b): the inverses of the strip's diagonal blocks L_kk.
+
+    Recursive doubling on the whole stack at once: the diagonal's reciprocal
+    inverts the 1 x 1 blocks, then each level joins two inverted halves,
+    [[A, 0], [C, D]]^-1 = [[A^-1, 0], [-D^-1 C A^-1, D^-1]], with two batched
+    products over every 2h-block of every L_kk.  An odd factor of b is left
+    to one batched triangular solve of the base blocks."""
+    inv = torch.tril(_diagonal_blocks(S, rank, world, b))
+    m_loc = inv.shape[0]
+    counts["solve.diag_inverses"] += m_loc
+
+    def tiles(e):  # the diagonal e x e tiles of every block, (m_loc, b / e, e, e)
+        return inv.as_strided((m_loc, b // e, e, e), (b * b, e * (b + 1), b, 1))
+
+    h = b // (b & -b)  # b = h 2^j: the doubling starts from the h x h tiles
+    if h == 1:
+        inv.diagonal(dim1=1, dim2=2).reciprocal_()
+    else:
+        eye = torch.eye(h, dtype=inv.dtype, device=inv.device)
+        tiles(h).copy_(torch.linalg.solve_triangular(tiles(h), eye, upper=False))
+    while h < b:
+        pairs = tiles(2 * h)
+        pair = pairs.reshape(-1, 2 * h, 2 * h)  # a copy, except at the top level
+        x = torch.bmm(torch.bmm(pair[:, h:, h:], pair[:, h:, :h]), pair[:, :h, :h])
+        torch.neg(x.view(pairs[..., h:, :h].shape), out=pairs[..., h:, :h])
+        h *= 2
+    return inv
+
+
 def _forward_solve(S, rhs, mesh: RankMesh, m: int, b: int) -> torch.Tensor:
     """L Y = rhs for the (n_pad, r) right-hand side, replicated."""
     with span("gp.solve.forward"):
         world, rank = mesh.world_size, mesh.rank
-        Y = rhs.clone()
-        r = Y.shape[1]
+        inv = _diagonal_inverses(S, rank, world, b)
+        r = rhs.shape[1]
+        # L_kk^-1 rhs_k of the owned blocks; at one rank this is Y's buffer
+        own = torch.bmm(inv, rhs.reshape(m // world, world, b, r)[:, rank])
+        Y = own.view(-1, r) if world == 1 else rhs.new_empty(rhs.shape)
         for k in range(m):
-            kc = slice(k * b, (k + 1) * b)
-            buf = Y.new_zeros(b, b + r)  # [L_kk | sum_{j<k} L_kj Y_j], from the owner
-            if k % world == rank:
-                row = S[(k // world) * b:(k // world + 1) * b]
-                buf[:, :b] = row[:, kc]
-                buf[:, b:] = row[:, :k * b] @ Y[:k * b]
-            buf = mesh.psum(buf)
-            Y[kc] = torch.linalg.solve_triangular(buf[:, :b], Y[kc] - buf[:, b:], upper=False)
+            l, mine = k // world, k % world == rank
+            if mine and k:
+                own[l].addmm_(inv[l], S[l * b:(l + 1) * b, :k * b] @ Y[:k * b], alpha=-1.0)
+            if world > 1:
+                Y[k * b:(k + 1) * b] = mesh.psum(own[l] if mine else own.new_zeros(b, r))
         return Y
 
 
@@ -186,19 +222,26 @@ def _backward_solve(S, Ybar, mesh: RankMesh, m: int, b: int) -> torch.Tensor:
     """L^T Z = Ybar from the bottom; each rank sums its owned rows below k."""
     with span("gp.solve.backward"):
         world, rank = mesh.world_size, mesh.rank
+        inv_t = _diagonal_inverses(S, rank, world, b).mT
+        r = Ybar.shape[1]
+        if world == 1:
+            Z = torch.bmm(inv_t, Ybar.reshape(m, b, r))
+            for k in reversed(range(m - 1)):
+                below = S[(k + 1) * b:, k * b:(k + 1) * b].mT @ Z[k + 1:].view(-1, r)
+                Z[k].addmm_(inv_t[k], below, alpha=-1.0)
+            return Z.view(-1, r)
         Z = Ybar.clone()
-        r = Z.shape[1]
         Z_own = Z.view(m // world, world, b, r)[:, rank]
         for k in reversed(range(m)):
             kc = slice(k * b, (k + 1) * b)
-            buf = Z.new_zeros(b, b + r)  # [L_kk from the owner | sum_{g>k} L_gk^T Z_g]
+            buf = Z.new_zeros(b, b + r)  # [L_kk^-T from the owner | sum_{g>k} L_gk^T Z_g]
             if k % world == rank:
-                buf[:, :b] = S[(k // world) * b:(k // world + 1) * b, kc]
+                buf[:, :b] = inv_t[k // world]
             l0 = (k - rank) // world + 1
             if l0 < Z_own.shape[0]:
                 buf[:, b:] = S[l0 * b:, kc].mT @ Z_own[l0:].reshape(-1, r)
             buf = mesh.psum(buf)
-            Z[kc] = torch.linalg.solve_triangular(buf[:, :b].mT, Z[kc] - buf[:, b:], upper=True)
+            Z[kc] = buf[:, :b] @ (Z[kc] - buf[:, b:])
         return Z
 
 
@@ -231,7 +274,8 @@ def fit_blockcyclic(
 
         S = _build_strip(kernel, x_pad, n, b, m, noise, jitter, mesh.rank, world)
         _factor(S, mesh, m, b)
-        logdet = mesh.psum(torch.sum(torch.log(_diagonal(S, mesh.rank, world, b))))
+        diag = _diagonal_blocks(S, mesh.rank, world, b).diagonal(dim1=1, dim2=2)
+        logdet = mesh.psum(torch.sum(torch.log(diag)))
         ybar = _forward_solve(S, y_pad[:, None], mesh, m, b)
         alpha = _backward_solve(S, ybar, mesh, m, b)[:n, 0]
         lml = -0.5 * torch.dot(y, alpha) - logdet - 0.5 * n * _LOG_2PI

@@ -16,14 +16,22 @@ package's ``tests/test_block_cholesky.py`` and
 * ``fit_sharded`` on the 2 x 4 grid at n = 64: lml 1e-10, alpha 1e-8,
   predictions 1e-8 and 1e-6;
 * the CLI's ``fit_large`` at n = 512 over the eight ranks against the JAX
-  package's ``fit``, 1e-8.
+  package's ``fit``, 1e-8;
+* ``_forward_solve`` and ``_backward_solve`` at n = 305 (padded), b in
+  {8, 12, 64} (12: the diagonal inverses' odd base) and r in {1, 5, 200}
+  against float64 ``solve_triangular`` on the lower factor assembled from
+  the ranks' strips, and the ``solve.diag_inverses`` counter (m_loc a
+  solve).
 
 In the test process, with no process group: one rank against the JAX
-package (SE and Matérn 5/2), the grid's shape for 1..8 devices, the inputs
-both packages refuse with ``ValueError``, and ``parallel.__all__``.
+package (SE and Matérn 5/2), the solves' cases above at W = 1, config #4's
+law at n = 4096 in float32 against float64 (the benchmark's ``mean_gap`` and
+``var_gap`` limits), the grid's shape for 1..8 devices, the inputs both
+packages refuse with ``ValueError``, and ``parallel.__all__``.
 """
 
 import dataclasses
+import functools
 import sys
 from pathlib import Path
 
@@ -42,6 +50,7 @@ PERIODIC = ((1.0, 1.0, 0.5), 150, 8, 0.15)  # params, n, b, noise
 PRED = ((1.0, 0.6), 192, 8, 40)  # params, n, b, prediction points
 GRID_N, GRID_XO = 64, 32
 CLI_N = 512
+SOLVE_N, SOLVE_BS, SOLVE_RS = 305, (8, 12, 64), (1, 5, 200)  # n is no multiple of b W
 
 
 def _data(n, seed=0):
@@ -82,6 +91,46 @@ def _port_kernel(family, params):
 
 def _np(tree):
     return tuple(np.asarray(t) for t in tree)
+
+
+def _solve_rhs(n_pad, r):
+    """The right-hand side every rank (and the test) draws for width r."""
+    return torch.randn(n_pad, r, generator=torch.Generator().manual_seed(n_pad + r),
+                       dtype=torch.float64)
+
+
+def _solve_case(mesh, b):
+    """A factored strip of n = SOLVE_N, its forward and backward solves of
+    each width, and the counter's rise over one solve of each kind."""
+    from gaussian_processes_tpu_torch import parallel as par
+    from gaussian_processes_tpu_torch.parallel import block_cholesky as bc
+    from gaussian_processes_tpu_torch.utils.profiling import counts
+
+    x, y = _data(SOLVE_N, seed=4)
+    post = par.fit_blockcyclic(_port_kernel("se", SE_PARAMS), torch.as_tensor(x),
+                               torch.as_tensor(y), NOISE, mesh, block_size=b, jitter=1e-6)
+    S, m = post.L_blocks, post.n_blocks
+    out = {"strip": S, "m": m, "Y": {}, "Z": {}}
+    for r in SOLVE_RS:
+        rhs = _solve_rhs(m * b, r)
+        before = counts["solve.diag_inverses"]
+        out["Y"][r] = bc._forward_solve(S, rhs, mesh, m, b)
+        middle = counts["solve.diag_inverses"]
+        out["Z"][r] = bc._backward_solve(S, rhs, mesh, m, b)
+        out["inverses"] = (middle - before, counts["solve.diag_inverses"] - middle)
+    return out
+
+
+def _assembled_factor(strips, m, b):
+    """The global lower factor from the ranks' strips (row block l of rank
+    w is global block w + l W)."""
+    world = len(strips)
+    L = torch.zeros(m * b, m * b, dtype=strips[0].dtype)
+    for w, strip in enumerate(strips):
+        for l in range(m // world):
+            g = w + l * world
+            L[g * b:(g + 1) * b] = strip[l * b:(l + 1) * b]
+    return torch.tril(L)
 
 
 def _jax_prediction_case():
@@ -239,6 +288,50 @@ def test_cli_fit_large_over_eight_ranks_matches_jax_fit(runs):
         _close(s["log_marginal"], want["cli"], 1e-8)
 
 
+@functools.lru_cache(maxsize=None)
+def _one_rank_solve_case(b):
+    from gaussian_processes_tpu_torch import parallel as par
+
+    mesh = par.make_chain_mesh(axis="shard", device="cpu")
+    assert mesh.world_size == 1 and mesh.group is None
+    return [_solve_case(mesh, b)]
+
+
+def _solve_cases(request, world, b):
+    if world == 1:
+        return _one_rank_solve_case(b)
+    return [r["solves"][b] for r in request.getfixturevalue("runs")[0]]
+
+
+@pytest.mark.parametrize("r", SOLVE_RS)
+@pytest.mark.parametrize("b", SOLVE_BS)
+@pytest.mark.parametrize("world", [1, WORLD])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_solves_match_float64_triangular_solves(request, direction, world, b, r):
+    cases = _solve_cases(request, world, b)
+    m = cases[0]["m"]
+    assert m * b > SOLVE_N  # padded
+    L = _assembled_factor([c["strip"] for c in cases], m, b)
+    rhs = _solve_rhs(m * b, r)
+    if direction == "forward":
+        want, key = torch.linalg.solve_triangular(L, rhs, upper=False), "Y"
+    else:
+        want, key = torch.linalg.solve_triangular(L.T, rhs, upper=True), "Z"
+    for c in cases:
+        got = c[key][r]
+        assert got.shape == (m * b, r) and got.dtype == torch.float64
+        _close(got, want, 1e-10, 1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("world", [1, WORLD])
+def test_each_solve_counts_its_diagonal_inverses(request, world):
+    for b in SOLVE_BS:
+        cases = _solve_cases(request, world, b)
+        m_loc = cases[0]["m"] // world
+        for c in cases:
+            assert c["inverses"] == (m_loc, m_loc)
+
+
 # ---------------------------------------------------------------------------
 # in the test process: one rank, no process group
 
@@ -266,6 +359,39 @@ def test_one_rank_without_a_group_matches_jax(family, params):
     ref_mean, ref_var = jpredict(want, _xo(25), jm)
     _close(mean, ref_mean, 1e-8, 1e-10)
     _close(var, ref_var, 1e-6, 1e-10)
+
+
+def test_float32_predictions_of_config4_law_hold_the_benchmark_limits():
+    """Config #4's law at n = 4096, b = 256, float32 at one rank: the
+    predictive variance within 1e-5 and the mean within 1e-2 of float64
+    (``var_gap`` and ``mean_gap`` of the benchmark's predict cell)."""
+    import gaussian_processes_tpu_torch as gpx
+    from gaussian_processes_tpu_torch import parallel as par
+
+    rng = np.random.default_rng(16)
+    n, noise, jitter = 4096, 0.1, 1e-4
+    x = np.sort(rng.uniform(-np.pi, np.pi, n)).astype(np.float32)
+    y = (np.sin(2 * x) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    xo = rng.uniform(-np.pi, np.pi, 200).astype(np.float32)
+    mesh = par.make_chain_mesh(axis="shard", device="cpu")
+    k32 = gpx.GaussianKernel(1.0, 1.0, dtype=torch.float32)
+    post = par.fit_blockcyclic(k32, torch.as_tensor(x), torch.as_tensor(y), noise, mesh,
+                               block_size=256, jitter=jitter)
+    mean, var = par.predict_diag_blockcyclic(post, torch.as_tensor(xo), mesh)
+    assert mean.dtype == var.dtype == torch.float32
+
+    x64, y64, xo64 = (torch.as_tensor(a, dtype=torch.float64) for a in (x, y, xo))
+
+    def se(a, c):  # h = w = 1
+        return torch.exp(-0.5 * (a[:, None] - c[None, :]) ** 2)
+
+    L = torch.linalg.cholesky(se(x64, x64) + (noise ** 2 + jitter) * torch.eye(n))
+    Kxo = se(xo64, x64)
+    want_mean = Kxo @ torch.cholesky_solve(y64[:, None], L)[:, 0]
+    v = torch.linalg.solve_triangular(L, Kxo.T, upper=False)
+    want_var = 1.0 - torch.sum(v * v, dim=0)
+    assert float(torch.max(torch.abs(mean.double() - want_mean))) < 1e-2
+    assert float(torch.max(torch.abs(var.double() - want_var))) < 1e-5
 
 
 @pytest.mark.parametrize("n_devices", range(1, WORLD + 1))
@@ -385,6 +511,7 @@ def _rank_main(out_dir):
     out["grid"] = (post.alpha, post.log_marginal,
                    par.predict_diag_sharded(post, t(_xo(GRID_XO)), grid), grid.shape)
     out["cli"] = cli.run_config(_cli_config(), device="cpu")
+    out["solves"] = {b: _solve_case(mesh, b) for b in SOLVE_BS}
     torch.save(out, Path(out_dir) / f"rank{mesh.rank}.pt")
     par.shutdown_cluster()
 

@@ -938,3 +938,47 @@ def test_b1_blockcyclic_strip_matches_plain(cuda, dtype):
     assert got.shape == (1024, 4096)
     _close(got, tpw.pairwise_matrix_folded(k, x_own, x), dtype)
     _close(got, tpw.pairwise_matrix_reference(k, x_own, x), dtype)
+
+
+def test_forward_solve_steps_are_gemms_on_card(cuda):
+    """The forward substitution at n = 8192, b = 256 (m = 32), W = 1 with no
+    process group, r = 200, float32: at most 4 device kernels a block step
+    (the diagonal blocks' inverses counted apart), none of them a TRSM, and
+    the solution within twice the float32 triangular solve's distance from
+    float64."""
+    from gaussian_processes_tpu_torch import parallel
+    from gaussian_processes_tpu_torch.parallel import block_cholesky as bc
+    from gaussian_processes_tpu_torch.utils import profiling
+
+    f32, b, r = torch.float32, 256, 200
+    mesh = parallel.make_chain_mesh(axis="shard", device=cuda)
+    x = _x(8192, 11, f32, cuda)
+    y = torch.sin(2 * x) + 0.1 * _x(8192, 12, f32, cuda)
+    post = parallel.fit_blockcyclic(KERNELS["se"](f32, cuda), x, y, 0.1, mesh, block_size=b,
+                                    jitter=1e-4)
+    S, m = post.L_blocks, post.n_blocks
+    rhs = torch.randn(m * b, r, generator=torch.Generator().manual_seed(5)).to(cuda)
+
+    def device_kernels(fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof, profiling.spans_enabled():
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        return kernels, {e.name for e in events}
+
+    inverse_kernels, _ = device_kernels(lambda: bc._diagonal_inverses(S, 0, 1, b))
+    kernels, names = device_kernels(lambda: bc._forward_solve(S, rhs, mesh, m, b))
+    assert "gp.solve.forward" in names and inverse_kernels
+    assert not [k for k in kernels if "trsm" in k.lower()]
+    assert len(kernels) - len(inverse_kernels) <= 4 * m, (len(kernels), len(inverse_kernels))
+    want = torch.linalg.solve_triangular(torch.tril(S.double()), rhs.double(), upper=False)
+
+    def err(Y):
+        return float((Y.double() - want).norm() / want.norm())
+
+    trsm = torch.linalg.solve_triangular(torch.tril(S), rhs, upper=False)
+    assert err(bc._forward_solve(S, rhs, mesh, m, b)) < 2 * err(trsm)
