@@ -64,10 +64,12 @@ class LogDensity:
 
     def value_and_grad(self, u):
         """(value, d value / du) for u of shape (D,) or (C, D), no graph;
-        counted as ``core.value_and_grad`` in ``utils.profiling.counts``."""
+        counted as ``core.value_and_grad`` in ``utils.profiling.counts``,
+        its rows (C, or 1 for a point) as ``core.rows``."""
         counts["core.value_and_grad"] += 1
         with span("gp.core.value_and_grad"):
             u = torch.as_tensor(u).detach()
+            counts["core.rows"] += u.shape[0] if u.ndim == 2 else 1
             if u.ndim == 2:
                 return self._vg(u)
             value, grad = self._vg(u[None])

@@ -358,11 +358,16 @@ def collect(log_density, state: SamplerState, num_samples: int, *, max_depth: in
 def continue_warmup(log_density, state: SamplerState, num_warmup: int, *, start: int = 0,
                     stop: int | None = None, max_depth: int = 10, target_accept: float = 0.8,
                     max_delta_energy: float = 1000.0, reduce_mean=_default_reduce_mean,
-                    reduce_welford=_default_reduce_welford) -> SamplerState:
+                    reduce_welford=_default_reduce_welford, init_buffer: int = 75,
+                    first_window: int = 25, term_buffer: int = 50) -> SamplerState:
     """Steps [start, stop) of the warmup schedule of ``num_warmup`` steps
     from ``state``: a warmup checkpointed after ``start`` steps resumes here
-    bit for bit."""
-    flags = adapt.build_warmup_schedule(num_warmup)
+    bit for bit, given the same buffers.  ``init_buffer``, ``first_window``
+    and ``term_buffer`` shape the schedule (``adapt.build_warmup_schedule``;
+    the defaults are the JAX package's): a warmup shorter than their sum
+    adapts the step size alone."""
+    flags = adapt.build_warmup_schedule(num_warmup, init_buffer=init_buffer,
+                                        term_buffer=term_buffer, first_window=first_window)
     stop = num_warmup if stop is None else stop
     for step in range(start, stop):
         state, _ = warmup_step(log_density, state, flags, step, max_depth=max_depth,

@@ -52,6 +52,7 @@ from gaussian_processes_tpu_torch.parallel.sharded import (
     ShardedCheesResult,
     ShardedNUTSResult,
     ShardedNUTSState,
+    checkpoint_nuts_sharded,
     collect_chees_sharded,
     collect_nuts_sharded,
     init_chees_sharded,
@@ -94,6 +95,7 @@ __all__ = [
     "ShardedCheesResult",
     "ShardedNUTSResult",
     "ShardedNUTSState",
+    "checkpoint_nuts_sharded",
     "collect_chees_sharded",
     "collect_nuts_sharded",
     "init_chees_sharded",

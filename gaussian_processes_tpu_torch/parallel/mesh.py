@@ -6,7 +6,8 @@ the world size and this rank's device, and carries the collectives the JAX
 package spells ``psum`` / ``pmean`` / ``all_gather``: each is one
 ``torch.distributed`` call on the group.  Without a process group (one
 process, no cluster configured) the mesh has one rank and every collective
-is the identity.
+is the identity.  Each collective, the identity too, counts one
+``parallel.collectives`` in ``utils.profiling.counts``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.distributed as dist
 
 from gaussian_processes_tpu_torch.parallel.multihost import local_device
 from gaussian_processes_tpu_torch.utils.device import resolve_device
+from gaussian_processes_tpu_torch.utils.profiling import counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +45,7 @@ class RankMesh:
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         """A contiguous copy of ``t`` reduced over the ranks (``t`` is left
         as it was)."""
+        counts["parallel.collectives"] += 1
         t = torch.clone(t.detach(), memory_format=torch.contiguous_format)
         if self.group is not None:
             dist.all_reduce(t, op=op, group=self.group)
@@ -62,6 +65,7 @@ class RankMesh:
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The ranks' blocks concatenated along ``dim`` in rank order."""
+        counts["parallel.collectives"] += 1
         if self.group is None:
             return t
         flag = t.dtype == torch.bool

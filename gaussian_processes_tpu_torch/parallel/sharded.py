@@ -15,8 +15,11 @@ the rank's chain block, the replicated adaptation state and the rank's
 generators; a state saved between stages (``utils.save_pytree`` to
 ``multihost.host_checkpoint_path``, one file per rank) resumes bit for bit,
 and ``sample_nuts_sharded(checkpoint=...)`` writes one every ``chunk_size``
-steps.  Results come back in the JAX package's
-global view: positions (S, C, D), gathered over the ranks.
+steps through ``checkpoint_nuts_sharded``.  Results come back in the JAX
+package's global view: positions (S, C, D), gathered over the ranks.  The
+NUTS stages and the checkpoint round trip each open a span
+(``gp.parallel.<stage>``), and each round trip counts one
+``parallel.checkpoints`` in ``utils.profiling.counts``.
 
 Random streams: the generators are derived once at init from the caller's
 generator (one draw, the same on every rank) and the rank, and ride in the
@@ -37,6 +40,7 @@ from gaussian_processes_tpu_torch.inference import adaptation as adapt
 from gaussian_processes_tpu_torch.inference import chees as chees_mod
 from gaussian_processes_tpu_torch.inference import nuts as nuts_mod
 from gaussian_processes_tpu_torch.parallel.mesh import RankMesh, make_mesh
+from gaussian_processes_tpu_torch.utils.profiling import counts, span
 
 _MASK64 = (1 << 64) - 1
 
@@ -151,16 +155,20 @@ def warmup_nuts_sharded(log_density, state: ShardedNUTSState, num_warmup: int, *
                         mesh: RankMesh | None = None, axis: str = "chain",
                         max_depth: int = 10, target_accept: float = 0.8,
                         max_delta_energy: float = 1000.0, start: int = 0,
-                        stop: int | None = None) -> ShardedNUTSState:
+                        stop: int | None = None, init_buffer: int = 75,
+                        first_window: int = 25, term_buffer: int = 50) -> ShardedNUTSState:
     """Pooled-adaptation warmup, steps [start, stop) of the schedule of
-    ``num_warmup`` steps (a warmup checkpointed after ``start`` steps resumes
-    here)."""
-    reduce_mean, reduce_welford, _ = _pooled_reducers(_mesh(mesh, axis))
-    s = nuts_mod.continue_warmup(
-        log_density, state, num_warmup, start=start, stop=stop, max_depth=max_depth,
-        target_accept=target_accept, max_delta_energy=max_delta_energy,
-        reduce_mean=reduce_mean, reduce_welford=reduce_welford)
-    return _as_sharded(s)
+    ``num_warmup`` steps with the given buffers (``nuts.continue_warmup``);
+    a warmup checkpointed after ``start`` steps resumes here with the same
+    buffers."""
+    with span("gp.parallel.warmup_nuts_sharded"):
+        reduce_mean, reduce_welford, _ = _pooled_reducers(_mesh(mesh, axis))
+        s = nuts_mod.continue_warmup(
+            log_density, state, num_warmup, start=start, stop=stop, max_depth=max_depth,
+            target_accept=target_accept, max_delta_energy=max_delta_energy,
+            reduce_mean=reduce_mean, reduce_welford=reduce_welford, init_buffer=init_buffer,
+            first_window=first_window, term_buffer=term_buffer)
+        return _as_sharded(s)
 
 
 def collect_nuts_sharded(log_density, state: ShardedNUTSState, num_samples: int, *,
@@ -170,19 +178,20 @@ def collect_nuts_sharded(log_density, state: ShardedNUTSState, num_samples: int,
     """Non-adaptive collection from a rank state, resumable: collect(2k)
     equals collect(k) then collect(k) from its ``final``.  The draws of all
     ranks are gathered into the global (S, C, ...) view."""
-    mesh = _mesh(mesh, axis)
-    res = nuts_mod.collect(
-        log_density, state, num_samples, max_depth=max_depth, max_delta_energy=max_delta_energy)
-    return ShardedNUTSResult(
-        positions=mesh.all_gather(res.positions, dim=1),
-        log_probs=mesh.all_gather(res.log_probs, dim=1),
-        accept_prob=mesh.all_gather(res.accept_prob, dim=1),
-        num_leapfrog=mesh.all_gather(res.num_leapfrog, dim=1),
-        diverging=mesh.all_gather(res.diverging, dim=1),
-        step_size=res.step_size,
-        inv_mass=res.inv_mass,
-        final=_as_sharded(res.final),
-    )
+    with span("gp.parallel.collect_nuts_sharded"):
+        mesh = _mesh(mesh, axis)
+        res = nuts_mod.collect(log_density, state, num_samples, max_depth=max_depth,
+                               max_delta_energy=max_delta_energy)
+        return ShardedNUTSResult(
+            positions=mesh.all_gather(res.positions, dim=1),
+            log_probs=mesh.all_gather(res.log_probs, dim=1),
+            accept_prob=mesh.all_gather(res.accept_prob, dim=1),
+            num_leapfrog=mesh.all_gather(res.num_leapfrog, dim=1),
+            diverging=mesh.all_gather(res.diverging, dim=1),
+            step_size=res.step_size,
+            inv_mass=res.inv_mass,
+            final=_as_sharded(res.final),
+        )
 
 
 def _chunks(steps: int, chunk_size: int | None):
@@ -192,15 +201,19 @@ def _chunks(steps: int, chunk_size: int | None):
     return [(b, min(b + size, steps)) for b in range(0, steps, max(size, 1))]
 
 
-def _through_disk(state, checkpoint: str, mesh: RankMesh):
-    """``state`` written to this rank's checkpoint file and read back onto
-    the rank's device: the run continues from what a restart would load."""
+def checkpoint_nuts_sharded(state: ShardedNUTSState, base: str,
+                            mesh: RankMesh | None = None) -> ShardedNUTSState:
+    """``state`` written to this rank's checkpoint file
+    (``host_checkpoint_path(base)``) and read back onto the rank's device:
+    the run continues from what a restart would load, bit for bit."""
     from gaussian_processes_tpu_torch.parallel.multihost import host_checkpoint_path
     from gaussian_processes_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
-    path = host_checkpoint_path(checkpoint)
-    save_pytree(path, state)
-    return shard_put_nuts(load_pytree(path, like=state), mesh)
+    counts["parallel.checkpoints"] += 1
+    with span("gp.parallel.checkpoint"):
+        path = host_checkpoint_path(base)
+        save_pytree(path, state)
+        return shard_put_nuts(load_pytree(path, like=state), mesh)
 
 
 def sample_nuts_sharded(log_density, init_position, generator=None, *,
@@ -231,7 +244,7 @@ def sample_nuts_sharded(log_density, init_position, generator=None, *,
         chunk_size = None
 
     def saved(s):
-        return s if checkpoint is None else _through_disk(s, checkpoint, mesh)
+        return s if checkpoint is None else checkpoint_nuts_sharded(s, checkpoint, mesh)
 
     for begin, end in _chunks(num_warmup, chunk_size):
         state = saved(warmup_nuts_sharded(log_density, state, num_warmup, start=begin, stop=end,

@@ -8,9 +8,13 @@ package's one place for tracing:
   ``chol_tile``, ...; ``ops.launch_counts`` is this object), the program its
   events under dotted names: ``inference.host_syncs`` (each read of a device
   value to the host in the samplers), ``core.value_and_grad`` (each batched
-  log-density evaluation), ``solve.diag_inverses`` (the diagonal blocks a
-  block-cyclic substitution inverts, m_loc a solve).  A counter adds a
-  Python int and never reads a tensor.
+  log-density evaluation) and ``core.rows`` (the positions it evaluates: C
+  for a (C, D) batch, 1 for a point), ``solve.diag_inverses`` (the diagonal
+  blocks a block-cyclic substitution inverts, m_loc a solve),
+  ``parallel.collectives`` (each ``RankMesh`` collective, the identity of
+  one rank too) and ``parallel.checkpoints`` (each chain-sharded state
+  written and read back).  A counter adds a Python int and never reads a
+  tensor.
 * ``span`` — a named range of the program, ``gp.<layer>.<what>``, on the
   profiler's clock, which the device events share.  Spans are off unless
   ``spans_enabled`` or ``trace`` turns them on: an off span is a flag test

@@ -466,7 +466,8 @@ def test_parallel_exports_every_jax_name():
 
     assert set(jpar.__all__) <= set(tpar.__all__)
     assert set(tpar.__all__) - set(jpar.__all__) == {
-        "RankMesh", "make_mesh", "shutdown_cluster", "BayesMesh", "GridMesh"}
+        "RankMesh", "make_mesh", "shutdown_cluster", "BayesMesh", "GridMesh",
+        "checkpoint_nuts_sharded"}
 
 
 # ---------------------------------------------------------------------------

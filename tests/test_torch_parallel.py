@@ -9,7 +9,8 @@ and saves it; the tests read it back.  Float64 on the CPU.
 
 * The pooled reducers over a (16, 3) chain block split 8 + 8 equal the
   Welford moments and means over all 16 chains, from the port's and the JAX
-  package's ``welford_update_batch``, to 1e-12.
+  package's ``welford_update_batch``, to 1e-12; each rank counts each of
+  their collectives in ``parallel.collectives``.
 * Sharded NUTS at one rank equals ``sample_nuts`` fed rank 0's derived
   generator bit for bit; at two ranks, runs stopped and resumed from
   per-rank checkpoints equal runs in one pass bit for bit (NUTS and ChEES).
@@ -149,6 +150,13 @@ def test_pooled_reducers_equal_the_whole_population(ranks):
         np.testing.assert_allclose(r["vec_mean"].numpy(), x.mean(0), rtol=1e-12)
 
 
+def test_each_collective_is_counted_on_every_rank(ranks):
+    (r0, r1), _ = ranks
+    # the Welford merge's pmean of the means, psum of M2 and psum of the
+    # counts, then the two pooled means
+    assert r0["collectives"] == r1["collectives"] == 5
+
+
 def test_one_rank_equals_sample_nuts_on_rank_zeros_generator():
     from gaussian_processes_tpu_torch import parallel as par
     from gaussian_processes_tpu_torch.inference import nuts as tnuts
@@ -260,6 +268,7 @@ def _rank_main(out_dir):
     torch.set_num_threads(1)
     from gaussian_processes_tpu_torch import parallel as par
     from gaussian_processes_tpu_torch.inference import adaptation as tadapt
+    from gaussian_processes_tpu_torch.utils.profiling import counts
 
     par.initialize_cluster(backend="gloo")
     mesh = par.make_chain_mesh(device="cpu")
@@ -268,9 +277,11 @@ def _rank_main(out_dir):
     # pooled reducers on a (16, 3) block split over the ranks
     x = torch.as_tensor(np.random.default_rng(0).normal(size=(16, 3)))[mesh.block(16)]
     reduce_mean, reduce_welford, reduce_vec_mean = par.sharded._pooled_reducers(mesh)
+    before = counts["parallel.collectives"]
     w = reduce_welford(tadapt.welford_update_batch(tadapt.welford_init(3, torch.float64), x))
     out.update(welford=(w.mean, w.m2, w.count), mean=reduce_mean(x[:, 0]),
                vec_mean=reduce_vec_mean(x))
+    out["collectives"] = counts["parallel.collectives"] - before
 
     ckpt = par.host_checkpoint_path(str(Path(out_dir) / "ckpt.npz"))
 
