@@ -7,13 +7,19 @@ non-adaptive collection.  The JAX package writes one chain and batches it
 with ``vmap``, whose while-loop rule masks the lanes that have finished.
 Here the chains are an explicit leading dimension and the masking is
 written out: a host loop over tree depths and, inside it, over the leaves
-of the subtree; every leaf evaluates the log density of all C chains at
-once (``log_density.value_and_grad`` on (C, D): on a card one B1 launch,
-one batched blocked factor over B3, one B2a launch), and per-chain masks
-freeze the chains whose subtree or tree has finished, diverged or turned.
-A loop ends when no chain is active, which reads one flag from the device
-per leaf and per depth; each read counts one ``inference.host_syncs`` in
-``utils.profiling.counts``.
+of the subtree; per-chain masks freeze the chains whose subtree or tree
+has finished, diverged or turned.  Every leaf evaluates the log density
+once, on the k chains still live there (``log_density.value_and_grad`` on
+(k, D): on a card one B1 launch, one batched blocked factor over B3, one
+B2a launch), gathered from and scattered back into the C rows; a leaf
+where every chain lives evaluates all C rows as they are.  A chain's log
+density never depends on another chain's row, as under ``vmap``, so the
+live chains read the values a full-width evaluation gives them (bit for
+bit on the CPU; on a card a smaller batch may round differently).  A depth
+ends when no chain is active, a subtree when no chain is live: one read
+from the device per depth (``active.any()``) and per leaf (the live count
+k, which the gather also takes); each read counts one
+``inference.host_syncs`` in ``utils.profiling.counts``.
 
 * **Checkpoints.** Within a subtree, leaf ``i`` (0-indexed) is stored at
   slot ``popcount(i)`` when ``i`` is even; a complete sub-subtree of size
@@ -98,6 +104,17 @@ def _leapfrog(vg, z, r, grad, eps, inv_mass):
     return z_new, r_new, logp, grad_new
 
 
+def _live_value_and_grad(vg, z, live, k: int, logp_fill, grad_fill):
+    """``vg`` of the ``k`` rows of z (C, D) that ``live`` (C,) marks,
+    scattered back into (C,) and (C, D); the other rows read ``logp_fill``
+    and ``grad_fill``.  With every row live, ``vg(z)`` itself."""
+    if k == z.shape[0]:
+        return vg(z)
+    rows = torch.nonzero_static(live, size=k).squeeze(1)  # k is known: no second sync
+    logp, grad = vg(z.index_select(0, rows))
+    return logp_fill.index_copy(0, rows, logp), grad_fill.index_copy(0, rows, grad)
+
+
 def _kinetic(r, inv_mass):
     return 0.5 * torch.sum(inv_mass * r * r, dim=-1)
 
@@ -146,10 +163,13 @@ def _build_subtree(vg, depth: int, edge, active, eps, inv_mass, energy0, max_dep
     for i in range(1 << depth):
         live = active & ~s.turning & ~s.diverging
         counts["inference.host_syncs"] += 1
-        if not bool(live.any()):
+        k = int(live.sum())
+        if k == 0:
             break
         u = _draw(generator, torch.rand, (C,), logp0)
-        z, r, logp, grad = _leapfrog(vg, s.z_e, s.r_e, s.grad_e, eps, inv_mass)
+        z, r, logp, grad = _leapfrog(
+            lambda z_new: _live_value_and_grad(vg, z_new, live, k, s.logp_e, s.grad_e),
+            s.z_e, s.r_e, s.grad_e, eps, inv_mass)
         energy = -logp + _kinetic(r, inv_mass)
         lw = energy0 - energy  # log leaf weight; NaN => divergent below
         diverging = ~(lw > -max_delta_energy)

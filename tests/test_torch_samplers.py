@@ -8,7 +8,10 @@ numbers from a ``torch.Generator`` (the JAX package splits keys), so whole
 runs are held to the target instead: the mean and covariance of a
 correlated 2-D Gaussian within 4 Monte-Carlo standard errors over 8 chains,
 a learned mass matrix, determinism under a seeded generator, and a
-divergent step that leaves the state finite.
+divergent step that leaves the state finite.  A NUTS leaf evaluates the log
+density on its live chains alone: on config #3's posterior a transition is
+bit for bit the one that evaluates every chain at every leaf, and the log
+density sees exactly the rows of the chains' leapfrogs.
 """
 
 import jax
@@ -19,9 +22,12 @@ import torch
 
 from gaussian_processes_tpu.inference import chees as jchees
 from gaussian_processes_tpu.inference import nuts as jnuts
+from gaussian_processes_tpu_torch import GaussianKernel
 from gaussian_processes_tpu_torch.inference import chees as tchees
 from gaussian_processes_tpu_torch.inference import diagnostics as td
+from gaussian_processes_tpu_torch.inference import make_log_posterior
 from gaussian_processes_tpu_torch.inference import nuts as tnuts
+from gaussian_processes_tpu_torch.utils.config import DataConfig, make_data
 
 MEAN = np.array([1.0, -2.0])
 COV = np.array([[1.0, 0.8], [0.8, 2.0]])
@@ -150,3 +156,74 @@ def test_warmup_learns_the_mass_matrix():
     ratio = state.inv_mass.numpy() / scales ** 2
     assert np.all((ratio > 0.5) & (ratio < 2.0)), ratio
     assert float(state.step_size) > 0.1  # a unit-scale step once the metric is learned
+
+
+#: config #3's posterior at its warmed-up inverse mass, and a step at which
+#: 12 chains started near its mode build trees of depths 1 to 4
+CONFIG3_INV_MASS = (0.17172, 0.022151, 0.0010110)
+CONFIG3_MODE = (1.73089, 1.16281, 0.0938252)
+
+
+def _config3_transition(seed, density=None):
+    """(state, info) of one float64 NUTS transition of 12 chains on config
+    #3's posterior (``density`` in its place if given), max_depth 6."""
+    x, y, _ = make_data(DataConfig(n=500))
+    lp = make_log_posterior(GaussianKernel(1.0, 1.0, dtype=torch.float64), torch.as_tensor(x),
+                            torch.as_tensor(y), prior_std=1.5, jitter=1e-6)
+    inv_mass = torch.tensor(CONFIG3_INV_MASS, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(seed)
+    z = (torch.log(torch.tensor(CONFIG3_MODE, dtype=torch.float64))
+         + torch.randn((12, 3), generator=gen, dtype=torch.float64) * inv_mass.sqrt())
+    density = lp if density is None else density(lp)
+    return tnuts.nuts_transition(density, tnuts.init_chain(lp, z), gen, 0.3, inv_mass,
+                                 max_depth=6)
+
+
+class _RowSpy:
+    """A log density that keeps every batch of positions it is handed."""
+
+    def __init__(self, density):
+        self.density, self.batches = density, []
+
+    def value_and_grad(self, u):
+        self.batches.append(u.clone())
+        return self.density.value_and_grad(u)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_live_chain_leaves_match_full_width_leaves_bit_for_bit(monkeypatch, seed):
+    state, info = _config3_transition(seed)
+    assert int(info.num_leapfrog.min()) < int(info.num_leapfrog.max())  # trees end apart
+    monkeypatch.setattr(tnuts, "_live_value_and_grad", lambda vg, z, *_: vg(z))
+    full_state, full_info = _config3_transition(seed)
+    for a, b in zip(state + info, full_state + full_info):
+        assert torch.equal(a, b)
+
+
+def _ordered_rows_of(sub, full) -> bool:
+    """Whether the rows of ``sub`` are rows of ``full``, in the same order."""
+    j = 0
+    for row in sub:
+        while j < len(full) and not torch.equal(full[j], row):
+            j += 1
+        if j == len(full):
+            return False
+        j += 1
+    return True
+
+
+def test_a_leaf_hands_the_log_density_only_its_live_chains(monkeypatch):
+    spies = []
+
+    def spy(density):
+        spies.append(_RowSpy(density))
+        return spies[-1]
+
+    _, info = _config3_transition(1, spy)
+    monkeypatch.setattr(tnuts, "_live_value_and_grad", lambda vg, z, *_: vg(z))
+    _config3_transition(1, spy)
+    live, full = spies[0].batches, spies[1].batches
+    C = info.num_leapfrog.shape[0]
+    assert sum(b.shape[0] for b in live) == int(info.num_leapfrog.sum()) < C * len(live)
+    assert len(live) == len(full) and torch.equal(live[0], full[0]) and live[0].shape[0] == C
+    assert all(_ordered_rows_of(a, b) for a, b in zip(live, full))

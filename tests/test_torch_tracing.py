@@ -191,8 +191,8 @@ def test_host_syncs_agree_with_a_spy_on_the_samplers_reads(monkeypatch, name):
     assert delta == len(reads) > 0
     if name == "chees.chees_step":
         assert reads == ["__float__"]  # the leapfrog count, once a transition
-    else:
-        assert set(reads) == {"__bool__"}
+    else:  # whether any chain is active, once a depth; the live count, once a leaf
+        assert set(reads) == {"__bool__", "__int__"}
 
 
 class _Counting:
