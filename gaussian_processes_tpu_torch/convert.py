@@ -10,9 +10,9 @@ A kernel is named by its family and parameters, or by a spec: a leaf
 so that a JAX ``ProductKernel(GaussianKernel, PeriodicKernel)`` becomes
 ``("prod", ("se", [h1, w1]), ("periodic", [h2, w2, p2]))``.  The structured
 operators (``KronOperator``, ``SKIOperator``, ``SKIKronOperator``), the
-Fourier feature maps, the SGPR, Laplace and block-cyclic posteriors (one
-rank's strip) and the samplers' states (NUTS, ChEES, chain-sharded NUTS)
-come from their arrays as well.
+SGPR, Laplace and block-cyclic posteriors (one rank's strip) and the
+samplers' states (NUTS, ChEES, chain-sharded NUTS) come from their arrays
+as well.
 """
 
 from __future__ import annotations
@@ -125,15 +125,6 @@ def iterative_posterior_from_numpy(family, params, x, y, noise, alpha,
         log_marginal=t(log_marginal), solve_residual=t(solve_residual),
         num_probes=int(num_probes), num_iters=int(num_iters),
     )
-
-
-def fourier_features_from_numpy(omega, phase, scale, *, device="cpu", dtype=torch.float64):
-    """The port's ``FourierFeatures`` from a JAX one's ``omega``, ``phase``
-    and ``scale``."""
-    from gaussian_processes_tpu_torch.models.pathwise import FourierFeatures
-
-    return FourierFeatures(omega=_tensor(omega, device, dtype), phase=_tensor(phase, device, dtype),
-                           scale=_tensor(scale, device, dtype))
 
 
 def sgpr_posterior_from_numpy(family, params, z, T_uu, V_B, lam_B, c, noise, log_marginal,

@@ -18,6 +18,7 @@ from gaussian_processes_tpu.inference import nuts as jnuts
 from gaussian_processes_tpu_torch import parallel as tpar
 from gaussian_processes_tpu_torch.inference import adaptation as ta
 from gaussian_processes_tpu_torch.inference import nuts as tnuts
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 TOL = 1e-12
 

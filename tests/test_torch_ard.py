@@ -21,6 +21,7 @@ from gaussian_processes_tpu_torch.convert import kernel_from_numpy
 from gaussian_processes_tpu_torch.models import gp as tgp
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 H = 1.3
 W = {2: np.array([0.8, 1.7]), 3: np.array([0.7, 1.2, 2.1])}

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from test_torch_parallel import REPO, launch_ranks, make_xy, wait_ranks
-from test_torch_parallel import one_thread  # noqa: F401  (an autouse fixture)
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 N, RANK = 64, 12
 SOLVER = dict(num_probes=4, num_iters=40, tol=1e-14, prior_std=1.5)

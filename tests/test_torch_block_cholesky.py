@@ -40,7 +40,7 @@ import pytest
 import torch
 
 from test_torch_parallel import REPO, launch_ranks, make_xy, wait_ranks
-from test_torch_parallel import one_thread  # noqa: F401  (an autouse fixture)
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 WORLD = 8
 SE_PARAMS, NOISE = (1.2, 0.7), 0.2

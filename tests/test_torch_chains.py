@@ -23,6 +23,7 @@ from gaussian_processes_tpu_torch.models import gp as tgp
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 FAMILIES = {"se": (gpt.GaussianKernel, gpx.GaussianKernel, 2),
             "periodic": (gpt.PeriodicKernel, gpx.PeriodicKernel, 3)}

@@ -25,7 +25,7 @@ from gaussian_processes_tpu_torch.inference import make_log_posterior
 from gaussian_processes_tpu_torch.inference import nuts as tnuts
 from gaussian_processes_tpu_torch.utils import load_pytree, save_pytree
 
-from test_torch_parallel import one_thread  # noqa: F401  (an autouse fixture)
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 
 def _make_xy(rng, n):

@@ -17,6 +17,7 @@ import torch
 from gaussian_processes_tpu.ops import blocked_cholesky as jbc
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import blocked_cholesky as tbc
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 REL = 1e-10
 

@@ -23,6 +23,7 @@ import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu.models import classify as jc
 from gaussian_processes_tpu_torch.convert import laplace_posterior_from_numpy
 from gaussian_processes_tpu_torch.models import classify as tc
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 F64 = jnp.float64
 RTOL = 1e-7

@@ -14,6 +14,7 @@ from gaussian_processes_tpu import cli as jcli
 from gaussian_processes_tpu.utils import config as jconfig
 from gaussian_processes_tpu_torch import cli as tcli
 from gaussian_processes_tpu_torch.utils import config as tconfig
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 

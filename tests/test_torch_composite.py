@@ -34,6 +34,7 @@ from gaussian_processes_tpu_torch.models import gp as tgp
 from gaussian_processes_tpu_torch.models import iterative_gp as tit_gp
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
 from test_torch_iterative import Replay, _precond_normals, _rademacher
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-12
 BLOCK = (128, 128)

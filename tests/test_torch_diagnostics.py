@@ -7,6 +7,7 @@ import pytest
 
 from gaussian_processes_tpu.inference import diagnostics as jd
 from gaussian_processes_tpu_torch.inference import diagnostics as td
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 
 def _draws(S, C, D, seed=0, rho=0.6):

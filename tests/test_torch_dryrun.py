@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from test_torch_parallel import REPO, launch_ranks, wait_ranks
-from test_torch_parallel import one_thread  # noqa: F401  (an autouse fixture)
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 WORLD = 8
 OK_LINE = ("dryrun_multichip(8): OK (dp chains=16, tp grid=2x4, block-cyclic chol lml match, "

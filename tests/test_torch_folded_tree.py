@@ -31,6 +31,7 @@ from gaussian_processes_tpu.models import composite as jcomp
 from gaussian_processes_tpu.ops import pairwise as jpw
 from gaussian_processes_tpu_torch.convert import kernel_from_spec
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 LEAVES = {"se": gpt.GaussianKernel, "periodic": gpt.PeriodicKernel,
           "matern32": gpt.Matern32Kernel, "matern52": gpt.Matern52Kernel,

@@ -18,6 +18,7 @@ import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu.models import gp as jgp
 from gaussian_processes_tpu_torch.convert import posterior_from_numpy
 from gaussian_processes_tpu_torch.models import gp as tgp
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-8
 

@@ -19,6 +19,7 @@ import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu.inference import gp_model as jgm
 from gaussian_processes_tpu_torch.inference import gp_model as tgm
 from test_torch_iterative import Replay, _precond_normals, _rademacher
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 FAMILIES = {"se": (gpt.GaussianKernel, gpx.GaussianKernel, (1.2, 0.6)),
             "periodic": (gpt.PeriodicKernel, gpx.PeriodicKernel, (1.1, 0.8, 2.2))}

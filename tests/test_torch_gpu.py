@@ -26,6 +26,7 @@ import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import blocked_cholesky as tbc
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 pytestmark = pytest.mark.gpu
 

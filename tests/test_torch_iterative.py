@@ -21,6 +21,7 @@ import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu.models import iterative_gp as jit_gp
 from gaussian_processes_tpu_torch.convert import iterative_posterior_from_numpy
 from gaussian_processes_tpu_torch.models import iterative_gp as tit_gp
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-6
 F64 = jnp.float64

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from test_torch_parallel import REPO, launch_ranks, wait_ranks
-from test_torch_parallel import one_thread  # noqa: F401  (an autouse fixture)
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-10
 N, NOISE = 64, 0.3

@@ -13,6 +13,7 @@ import gaussian_processes_tpu as gpt
 import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu_torch.convert import kernel_from_numpy
 from gaussian_processes_tpu_torch.models.base import tri_index
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-12
 

@@ -37,6 +37,7 @@ from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
 from gaussian_processes_tpu_torch.utils import config as tconfig
 from test_torch_iterative import Replay, _precond_normals, _rademacher
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-12
 BLOCK = (128, 128)

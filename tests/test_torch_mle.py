@@ -19,6 +19,7 @@ from gaussian_processes_tpu.inference import fit_mle as jfit_mle
 from gaussian_processes_tpu.utils import testing as tu
 from gaussian_processes_tpu_torch.inference import gp_model as tgm
 from gaussian_processes_tpu_torch.inference import mle as tmle
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 
 def _data(periodic=False, n=40, seed=0):

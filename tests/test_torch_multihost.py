@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from test_torch_parallel import REPO, free_port, launch_ranks, make_xy, wait_ranks
-from test_torch_parallel import one_thread  # noqa: F401  (an autouse fixture)
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 SUMMARY_KEYS = {"process_index", "process_count", "local_devices", "global_devices",
                 "initialized"}

@@ -20,6 +20,7 @@ import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu.ops import pairwise as jpw
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-12
 

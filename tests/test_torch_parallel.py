@@ -31,22 +31,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 MEAN = np.array([1.0, -2.0])
 COV = np.array([[1.0, 0.8], [0.8, 2.0]])
 GAUSS = dict(num_warmup=150, num_samples=250)
 GP = dict(num_warmup=100, num_samples=120, max_depth=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread while a file of these tests runs: their samplers
-    and solvers are loops of small operations, which a thread pool only
-    slows, and more so on a machine busy with other test processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def free_port() -> int:

@@ -27,6 +27,7 @@ from gaussian_processes_tpu_torch.convert import (
     posterior_from_numpy,
 )
 from gaussian_processes_tpu_torch.models import pathwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 F64 = jnp.float64
 _SAMPLERS = ("normal", "uniform", "gamma", "chisquare", "categorical", "bernoulli",

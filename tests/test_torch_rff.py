@@ -17,6 +17,7 @@ from gaussian_processes_tpu.models import rff as jrff
 from gaussian_processes_tpu_torch.convert import kernel_from_spec
 from gaussian_processes_tpu_torch.models import rff as trff
 from test_torch_pathwise import SPECS, Replay, _ard, jax_kernel, record_draws
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL = 1e-9
 

@@ -28,6 +28,7 @@ from gaussian_processes_tpu_torch.inference import diagnostics as td
 from gaussian_processes_tpu_torch.inference import make_log_posterior
 from gaussian_processes_tpu_torch.inference import nuts as tnuts
 from gaussian_processes_tpu_torch.utils.config import DataConfig, make_data
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 MEAN = np.array([1.0, -2.0])
 COV = np.array([[1.0, 0.8], [0.8, 2.0]])

@@ -29,6 +29,7 @@ import gaussian_processes_tpu as gpt
 import gaussian_processes_tpu_torch as gpx
 from gaussian_processes_tpu.ops import pairwise as jpw
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 BLOCK = (128, 128)
 TOL = {"float64": 1e-10, "float32": 1e-5}

@@ -26,6 +26,7 @@ from gaussian_processes_tpu_torch.convert import sgpr_posterior_from_numpy
 from gaussian_processes_tpu_torch.inference import gp_model as tgm
 from gaussian_processes_tpu_torch.models import sgpr as ts
 from test_torch_pathwise import Replay, _ard, record_draws
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 F64 = jnp.float64
 NOISE = 0.15

@@ -26,7 +26,8 @@ from gaussian_processes_tpu_torch import parallel as par
 from gaussian_processes_tpu_torch.inference import adaptation as adapt
 from gaussian_processes_tpu_torch.utils import profiling
 
-from test_torch_parallel import gauss_init, gauss_logp, gp_problem, one_thread  # noqa: F401
+from test_torch_parallel import gauss_init, gauss_logp, gp_problem
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 BUFFERS = dict(init_buffer=5, first_window=10, term_buffer=5)
 OPTS = dict(max_depth=4)

@@ -28,6 +28,7 @@ from gaussian_processes_tpu_torch.models import iterative_gp as tit_gp
 from gaussian_processes_tpu_torch.ops import ski as tski
 from test_torch_iterative import Replay
 from test_torch_toeplitz import FIT_RTOL, close, pair, t
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 F64 = jnp.float64
 NOISE = 0.3

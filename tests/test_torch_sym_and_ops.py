@@ -7,7 +7,12 @@
 * ``ops.__all__`` holds every name of the JAX package's but ``host`` (a
   host oracle the port does not carry), and ``tile_program``'s function is
   the JAX package's on the trees of ``test_torch_folded_tree.py``.
+* Every ``tests/test_torch_*.py`` takes ``one_thread`` from
+  ``torch_threads.py`` and none defines its own.
 """
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from gaussian_processes_tpu.ops import pairwise as jpw
 from gaussian_processes_tpu_torch.convert import kernel_from_spec
 
 from test_torch_folded_tree import TREES, _jax_kernel
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 LEAVES = {
     "se": (gpt.GaussianKernel, gpx.GaussianKernel, (1.3, 0.7)),
@@ -88,3 +94,18 @@ def test_tile_program_matches_jax(name):
 def test_tile_program_refuses_ard():
     with pytest.raises(TypeError):
         tops.tile_program(gpx.ARDGaussianKernel(1.0, torch.ones(2, dtype=torch.float64)))
+
+
+def test_every_port_test_file_runs_on_one_thread():
+    files = sorted(Path(__file__).resolve().parent.glob("test_torch_*.py"))
+    assert files
+    unpinned, own = [], []
+    for path in files:
+        body = ast.parse(path.read_text()).body
+        if not any(isinstance(node, ast.ImportFrom) and node.module == "torch_threads"
+                   and "one_thread" in {a.name for a in node.names} for node in body):
+            unpinned.append(path.name)
+        if any(isinstance(node, ast.FunctionDef) and node.name == "one_thread" for node in body):
+            own.append(path.name)
+    assert unpinned == [], f"import one_thread from torch_threads in {unpinned}"
+    assert own == [], f"take one_thread from torch_threads instead of defining it in {own}"

@@ -23,6 +23,7 @@ from gaussian_processes_tpu_torch.models import iterative_gp as tit_gp
 from gaussian_processes_tpu_torch.ops import krylov as tkrylov
 from gaussian_processes_tpu_torch.ops import toeplitz as tt
 from test_torch_iterative import Replay
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 RTOL, FIT_RTOL = 1e-10, 1e-8
 F64 = jnp.float64

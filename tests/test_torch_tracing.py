@@ -20,6 +20,7 @@ from gaussian_processes_tpu_torch import GaussianKernel, ops, parallel
 from gaussian_processes_tpu_torch.inference import chees, init_positions, make_log_posterior, nuts
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.utils import profiling
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 F64 = torch.float64
 SYNCS, CORE = "inference.host_syncs", "core.value_and_grad"

@@ -28,6 +28,7 @@ from gaussian_processes_tpu_torch.inference import gp_model as tgm
 from gaussian_processes_tpu_torch.ops import kronecker as tkron
 from gaussian_processes_tpu_torch.ops import toeplitz as tt
 from test_torch_toeplitz import close, grid, pair, t
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 F64 = jnp.float64
 
