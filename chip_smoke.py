@@ -184,6 +184,11 @@ HOST_AHEAD_CYCLES = 200_000_000
 # absolute terms; the kernel sums a row's n products in another order (and
 # across tiles in double) than the plain strips' matmuls
 PRODUCT_TOL = {"float32": 1e-5, "float64": 1e-12}
+# B2a contracted against its float64 twin: |kernel - twin| <= tol * 1/2
+# sum_ij |dK_p| (|alpha_i alpha_j| + |K^-1_ij|), a chain's and plane's sum
+# of absolute terms before cancellation; the kernel sums the upper triangle
+# in registers, blocks and a second pass, the twin the whole square
+CONTRACT_TOL = {"float32": 1e-5, "float64": 1e-12}
 
 # the matrix-free workload (bench.py, bench_iterative): N = 65536 sorted
 # uniform x on [-pi, pi], y = sin(2x) + 0.1 eps, SE with h = 1 and
@@ -386,7 +391,8 @@ KERNEL_ROWS = [
     ("B6 ARD pairwise K", "pairwise_ard", "pairwise_ard",
      "gaussian_processes_tpu_torch/csrc/ard_pairwise.cu",
      "gaussian_processes_tpu/ops/pairwise.py:188"),
-    # the samplers' and MLE's cases: one launch per batched evaluation
+    # the samplers' and MLE's cases: one launch per batched evaluation (B2a's
+    # Jacobians a tree's alone; a leaf takes B2a contracted, below)
     ("B1 pairwise K over a chain table", "pairwise_k_chains", "pairwise_k_chains",
      "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88"),
     ("B2a pairwise dK/dtheta over a chain table", "pairwise_jac_chains", "pairwise_jac_chains",
@@ -422,6 +428,13 @@ KERNEL_ROWS = [
     *((f"B2a pairwise dK/dtheta over a chain table, {fam}", f"pairwise_jac_chains_{fam}",
        f"pairwise_jac_chains_{fam}", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
        "gaussian_processes_tpu/ops/pairwise.py:270") for fam in ("matern52", "rq")),
+    # B2a contracted: a leaf's gradient terms on the samplers' and MLE's paths
+    ("B2a contracted over a chain table", "pairwise_jac_contract_chains",
+     "pairwise_jac_contract_chains", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:270"),
+    *((f"B2a contracted over a chain table, {fam}", f"pairwise_jac_contract_chains_{fam}",
+       f"pairwise_jac_contract_chains_{fam}", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+       "gaussian_processes_tpu/ops/pairwise.py:270") for fam in ("matern52", "rq")),
     # slice 3: the grids' first columns (toeplitz_column, jacobian_columns)
     ("B1 pairwise K, grid column (n x 1)", "pairwise_k", "pairwise_k_grid_column",
      "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88",
@@ -448,6 +461,9 @@ KERNEL_ROWS = [
     ("B3 Cholesky tile with its inverse on 1024-chain stacks", "chol_tile",
      "chol_tile_inv_chains_1024", "gaussian_processes_tpu_torch/csrc/chol_tile.cu",
      "gaussian_processes_tpu/ops/blocked_cholesky.py:83", ("multihost-chains",)),
+    ("B2a contracted over a chain table, 1024 chains", "pairwise_jac_contract_chains",
+     "pairwise_jac_contract_chains_1024", "gaussian_processes_tpu_torch/csrc/pairwise.cuh",
+     "gaussian_processes_tpu/ops/pairwise.py:270", ("multihost-chains",)),
     ("B1 pairwise K, row strip (n/W x block, no diagonal)", "pairwise_k", "pairwise_k_row_strip",
      "gaussian_processes_tpu_torch/csrc/pairwise.cuh", "gaussian_processes_tpu/ops/pairwise.py:88",
      ("row-sharded",)),
@@ -459,22 +475,24 @@ KERNEL_ROWS = [
 ]
 # the launch counters each main path must move: B1 builds the pivot rows
 # and cross-covariances of the matrix-free path, B3 factors its exact ARD
-# fit; MLE (one chain) and the samplers evaluate through the chain tables
+# fit; MLE (one chain) and the samplers evaluate through the chain tables,
+# a leaf's gradient terms through B2a contracted
 PATH_KERNELS = {
     "exact": ("pairwise_k", "pairwise_jac", "pairwise_hess", "chol_tile"),
     "matrix-free": ("pairwise_k", "chol_tile", "kernel_matvec", "kernel_matvec_ard",
                     "kernel_jacvec", "pairwise_ard"),
-    "mle": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
-    "chees": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
-    "nuts": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
+    "mle": ("pairwise_k_chains", "pairwise_jac_contract_chains", "chol_tile"),
+    "chees": ("pairwise_k_chains", "pairwise_jac_contract_chains", "chol_tile"),
+    "nuts": ("pairwise_k_chains", "pairwise_jac_contract_chains", "chol_tile"),
     # the families and trees ported after SE and periodic
     "exact-new": tuple(f"{k}_{fam}" for fam in NEW_FAMILY_OPS
                        for k in ("pairwise_k", "pairwise_jac", "pairwise_hess")) + ("chol_tile",),
     "matrix-free-new": tuple(f"{k}_{fam}" for fam in NEW_FAMILY_OPS
                              for k in ("pairwise_k", "kernel_matvec", "kernel_jacvec")),
     "matrix-free-tree": ("pairwise_k_tree", "kernel_matvec_tree"),
-    "mle-rq": ("pairwise_k_chains_rq", "pairwise_jac_chains_rq", "chol_tile"),
-    "chees-matern52": ("pairwise_k_chains_matern52", "pairwise_jac_chains_matern52", "chol_tile"),
+    "mle-rq": ("pairwise_k_chains_rq", "pairwise_jac_contract_chains_rq", "chol_tile"),
+    "chees-matern52": ("pairwise_k_chains_matern52", "pairwise_jac_contract_chains_matern52",
+                       "chol_tile"),
     # a tree's K from B1's tree body, its dK/dtheta from its SE and periodic
     # leaves' B1 and B2a chain launches
     "chains-tree": ("pairwise_k_chains_tree", "pairwise_k_chains", "pairwise_jac_chains",
@@ -506,7 +524,7 @@ PATH_KERNELS = {
     # the unsharded twins of the row-sharded calls (B4, B5, and B1's strips
     # and pivot rows), then the row-sharded calls alone: their strips and
     # pivot rows (B1) and the data-sharded gradient's Jacobian strips (B2a)
-    "multihost-chains": ("pairwise_k_chains", "pairwise_jac_chains", "chol_tile"),
+    "multihost-chains": ("pairwise_k_chains", "pairwise_jac_contract_chains", "chol_tile"),
     "row-twins": ("pairwise_k", "kernel_matvec", "kernel_jacvec"),
     "row-sharded": ("pairwise_k", "pairwise_jac"),
     # slice 5c-5d: dryrun_multichip(1), every multi-device path on tiny
@@ -1389,6 +1407,63 @@ def chain_problem(dev, dtype, family, chains=CHAINS, n=CHAIN_N):
     return x, template, torch.as_tensor(np.exp(u), dtype=dtype, device=dev)
 
 
+def contract_operands(K, x):
+    """alpha = K^-1 sin(2x) and a row-major K^-1 for a (C, n, n) stack K,
+    from a float64 factor, in K's dtype: the operands that the chains'
+    value+grad hands B2a contracted."""
+    import torch
+
+    L = torch.linalg.cholesky(K.double())
+    y = torch.sin(2 * x.double())[None, :, None].expand(K.shape[0], -1, 1)
+    alpha = torch.cholesky_solve(y, L)[..., 0].to(K.dtype)
+    inv_K = torch.cholesky_inverse(L).to(K.dtype).contiguous()
+    return alpha, inv_K
+
+
+def check_contract(check, rows, key, label, template, x, params, alpha, inv_K, j_ops, timed):
+    """B2a contracted over a chain table against its float64 twin, within
+    CONTRACT_TOL of the sum's size before cancellation; timed beside its
+    plain twin in the same dtype and the path it replaced (B2a's Jacobians
+    and the two einsums over them).  The bound reads K^-1's upper triangle
+    once and evaluates P Jacobian values and P multiply-adds an element of
+    it."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    dname = str(x.dtype).split(".")[-1]
+    kern = lambda: pw.jacobian_contract_chains(template, x, params, alpha, inv_K)  # noqa: E731
+    got = kern().double()
+    x64, p64, a64, w64 = (t.double() for t in (x, params, alpha, inv_K))
+    want = pw.jacobian_contract_chains_reference(template, x64, p64, a64, w64)
+    J = pw.pairwise_jacobian_chains_reference(template, x64, p64).abs_()
+    scale = 0.5 * torch.einsum("cpij,cij->cp", J, (a64[:, :, None] * a64[:, None, :]).abs()
+                               + w64.abs())
+    del J
+    err = float((got - want).abs().max())
+    check(f"B2a contracted {label}: |kernel - twin| / the sum before cancellation",
+          float(((got - want).abs() / scale).max()), CONTRACT_TOL[dname])
+    del want, scale, x64, p64, a64, w64
+    if not timed:
+        return
+
+    def replaced():
+        J = pw.pairwise_jacobian_chains(template, x, params)
+        quad = torch.einsum("ci,cpij,cj->cp", alpha, J, alpha)
+        return 0.5 * (quad - torch.einsum("cij,cpji->cp", inv_K, J))
+
+    C, P = params.shape
+    n = x.shape[0]
+    tri = n * (n + 1) // 2
+    rows[key] = {
+        "max_abs_err": err, "ms": time_ms(kern, 20),
+        "plain_ms": time_ms(
+            lambda: pw.jacobian_contract_chains_reference(template, x, params, alpha, inv_K), 5),
+        "library_ms": None, "replaced_ms": time_ms(replaced, 5),
+        **bound(C * (j_ops + 2 * P + 3) * tri,
+                x.element_size() * (n + C * (P + n + tri + P)))}
+    torch.cuda.empty_cache()
+
+
 def check_chain_kernels(check, dev, rows):
     """Phase 3c: B1 and B2a over a (C, P) parameter table and the batched
     blocked factor over B3 stacks, at the samplers' shapes (C = 64, N =
@@ -1440,6 +1515,12 @@ def check_chain_kernels(check, dev, rows):
                 rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
                              "library_ms": None,
                              **bound(C * j_ops * n2, 4 * (n + C * P + C * P * n2))}
+            # B2a contracted: this K's value+grad takes its gradient terms there
+            alpha, inv_K = contract_operands(K, x)
+            check_contract(check, rows, "pairwise_jac_contract_chains" + (
+                "" if fam == "se" else f"_{fam}"), tag, template, x, params, alpha, inv_K,
+                j_ops, timed)
+            del alpha, inv_K
             if fam != "se":
                 continue
             # the factor of the SE chains' K, a stack of 64 with a ragged last panel
@@ -1500,10 +1581,13 @@ def check_chain_kernels(check, dev, rows):
                 "pairwise_jac_chains_periodic", "chol_tile_inv_chains", "cholesky_blocked_chains",
                 "value_and_grad_chains", "pairwise_k_chains_matern52", "pairwise_jac_chains_matern52",
                 "pairwise_k_chains_rq", "pairwise_jac_chains_rq", "pairwise_k_chains_tree",
-                "tree_jacobian_chains"):
+                "tree_jacobian_chains", "pairwise_jac_contract_chains",
+                "pairwise_jac_contract_chains_periodic", "pairwise_jac_contract_chains_matern52",
+                "pairwise_jac_contract_chains_rq"):
         r = rows[key]
         print(f"  {key}: {r['ms']:.4f} ms" + "".join(
-            f", {f} {r[f]:.4f}" for f in ("plain_ms", "library_ms", "bound_ms", "wall_ms")
+            f", {f} {r[f]:.4f}" for f in ("plain_ms", "library_ms", "replaced_ms", "bound_ms",
+                                          "wall_ms")
             if r.get(f) is not None), flush=True)
     torch.cuda.empty_cache()
 
@@ -3794,6 +3878,10 @@ def check_slice5_kernels(check, dev, rows):
                 rows[key] = {"max_abs_err": err, "ms": time_ms(kern, 10),
                              "plain_ms": time_ms(plain, 5), "library_ms": None, **bound(*work)}
         K = pw.pairwise_matrix_chains(template, x, params, diag)
+        alpha, inv_K = contract_operands(K, x)
+        check_contract(check, rows, "pairwise_jac_contract_chains_1024", f"{C}-chain table {dname}",
+                       template, x, params, alpha, inv_K, SE_JAC_OPS, timed)
+        del alpha, inv_K
         tiles = K[:, :128, :128].contiguous()
         del K
         (got, got_inv), (want, want_inv) = bc.chol_tile_inv(tiles), bc.chol_tile_inv_reference(tiles)
@@ -3826,12 +3914,13 @@ def check_slice5_kernels(check, dev, rows):
                 "library_ms": None, **bound(SE_K_OPS * nb, 4 * (ITER_N + ROW_BLOCK + nb))}
         torch.cuda.empty_cache()
     for key in ("pairwise_k_chains_1024", "pairwise_jac_chains_1024", "chol_tile_inv_chains_1024",
-                "pairwise_k_row_strip"):
+                "pairwise_k_row_strip", "pairwise_jac_contract_chains_1024"):
         r = rows[key]
         print(f"  {key}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})" + (f", library {r['library_ms']:.4f}" if r["library_ms"]
-                                      else "") + f", max_abs_err {r['max_abs_err']:.3e}",
-              flush=True)
+                                      else "") + (f", replaced {r['replaced_ms']:.4f}"
+                                                  if "replaced_ms" in r else "")
+              + f", max_abs_err {r['max_abs_err']:.3e}", flush=True)
 
 
 def check_blockcyclic_kernel(check, dev, rows):
@@ -4251,7 +4340,7 @@ def main() -> int:
                          if "sfu_floor_ms" in slice_rows[row]},
         **{key: slice_rows[key] for key in (
             "pairwise_k_chains_periodic", "pairwise_jac_chains_periodic",
-            "cholesky_blocked_chains", "value_and_grad_chains", "tree_jacobian_chains",
+            "pairwise_jac_contract_chains_periodic", "cholesky_blocked_chains", "value_and_grad_chains", "tree_jacobian_chains",
             "pairwise_k_tree_16384", "kernel_matvec_matern52_r8", "kernel_matvec_matern52_r9",
             "kernel_matvec_tree_r8", *(f"pairwise_k_{fam}_pivot_row" for fam in NEW_FAMILY_OPS))},
         "launches_by_path": launches_by_path,
@@ -4264,7 +4353,8 @@ def main() -> int:
         "slice5": slice5,
         **{key: slice_rows[key] for key in ("pairwise_k_chains_1024", "pairwise_jac_chains_1024",
                                             "chol_tile_inv_chains_1024", "pairwise_k_row_strip",
-                                            "pairwise_k_blockcyclic_strip")},
+                                            "pairwise_k_blockcyclic_strip",
+                                            "pairwise_jac_contract_chains_1024")},
     }))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 // B1, B2a, B2b: the entry points, B1 for every family and B2a / B2b for SE
-// and periodic (the kernels and their design: pairwise.cuh).
+// and periodic, B2a also contracted over a chain table (the kernels and
+// their design: pairwise.cuh).
 
 #include "pairwise.cuh"
 
@@ -66,12 +67,15 @@ int launch_k(int device, const void* x1, const void* x2, const void* params, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// order 0 (B2a contracted) takes x1 = x2 and the contraction's operands
 template <typename T>
 int launch_deriv(int device, const void* x1, const void* x2, const void* params, void* out,
                  int n, int m, int chains, int stride, int family, int order, int value,
-                 void* stream) {
-  if (n <= 0 || m <= 0 || chains <= 0 || chains > kMaxGridY || stride < 0 ||
-      (order != 1 && order != 2) || (order == 1 && value >= 0)) {
+                 void* stream, const void* alpha = nullptr, const void* inv_K = nullptr,
+                 void* partial = nullptr) {
+  if (n <= 0 || m <= 0 || chains <= 0 || chains > kMaxGridY || stride < 0 || order < 0 ||
+      order > 2 || (order != 2 && value >= 0) ||
+      (order == 0 && (x1 != x2 || n != m || !alpha || !inv_K || !partial))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
@@ -80,7 +84,8 @@ int launch_deriv(int device, const void* x1, const void* x2, const void* params,
   const T* b = static_cast<const T*>(x2);
   const T* th = static_cast<const T*>(params);
   T* o = static_cast<T*>(out);
-  const gp::DerivLaunch g{n, m, chains, stride, static_cast<cudaStream_t>(stream)};
+  const gp::DerivLaunch g{n, m, chains, stride, static_cast<cudaStream_t>(stream),
+                          alpha, inv_K, partial};
   switch (family) {
     case gp::kSE:
       return launch_deriv_form<T, gp::SEForm<T>>(a, b, th, o, order, value, g);
@@ -163,6 +168,39 @@ int gp_pairwise_jac_chains_f64(int device, const void* x1, const void* x2, const
                                void* stream) {
   return launch_deriv<double>(device, x1, x2, table, out, n, m, chains, stride, family, 1, -1,
                               stream);
+}
+
+// B2a contracted over the same table: out (chains, P) is, for each chain
+// c, 1/2 sum_ij dK_p(x_i - x_j; table[c, :P]) (alpha_ci alpha_cj -
+// inv_K_cij), dK/dtheta never stored; alpha is (chains, n), inv_K (chains,
+// n, n), symmetric (its upper triangle is read), partial a scratch of
+// (chains, P, gp_pairwise_jac_contract_blocks(n)) values
+int gp_pairwise_jac_contract_chains_f32(int device, const void* x, const void* table,
+                                        const void* alpha, const void* inv_K, void* partial,
+                                        void* out, int n, int chains, int stride, int family,
+                                        void* stream) {
+  return launch_deriv<float>(device, x, x, table, out, n, n, chains, stride, family, 0, -1,
+                             stream, alpha, inv_K, partial);
+}
+
+int gp_pairwise_jac_contract_chains_f64(int device, const void* x, const void* table,
+                                        const void* alpha, const void* inv_K, void* partial,
+                                        void* out, int n, int chains, int stride, int family,
+                                        void* stream) {
+  return launch_deriv<double>(device, x, x, table, out, n, n, chains, stride, family, 0, -1,
+                              stream, alpha, inv_K, partial);
+}
+
+// the blocks of B2a's grid over an (n, n) plane: the partials a chain and
+// plane of the contracted case
+int gp_pairwise_jac_contract_blocks_f32(int n) {
+  const dim3 grid = deriv_grid<float>(n, n, 1);
+  return static_cast<int>(grid.x * grid.y);
+}
+
+int gp_pairwise_jac_contract_blocks_f64(int n) {
+  const dim3 grid = deriv_grid<double>(n, n, 1);
+  return static_cast<int>(grid.x * grid.y);
 }
 
 }  // extern "C"

@@ -41,7 +41,10 @@
 // table in one launch, chain c = blockIdx.z reading its row and writing its
 // own output at c times the output's size; every chain shares x.  The work
 // and the bound are C times one matrix's, and at the samplers' N=500 one
-// matrix alone (1 MB) would fill a few dozen blocks of the card.
+// matrix alone (1 MB) would fill a few dozen blocks of the card.  B2a
+// contracted (order 0) is the samplers' gradient: B2a's element over the
+// table summed against alpha alpha^T - K^-1, the Jacobian never stored
+// (pairwise_jac_contract_kernel below).
 //
 // Families: B1 evaluates every leaf of closed_forms.cuh and, as kTree, a
 // Sum/Product tree of them (TreeValue: the program as a sum of products,
@@ -67,15 +70,20 @@
 namespace gp {
 
 // the launch geometry of B2: `chains` parameter rows `stride` apart (the
-// Hessian's callers pass one row)
+// Hessian's callers pass one row); for B2a contracted (order 0), the
+// contraction's operands: alpha (chains, n), K^-1 (chains, n, n) and the
+// scratch of block partials (chains, P, jac_contract_blocks)
 struct DerivLaunch {
   int n, m, chains, stride;
   cudaStream_t stream;
+  const void* alpha = nullptr;
+  const void* inv_K = nullptr;
+  void* partial = nullptr;
 };
 
 // B2 for Matern 3/2, Matern 5/2 and RQ (pairwise_ext_f32.cu,
-// pairwise_ext_f64.cu): as launch_deriv_form below for `family`, or
-// cudaErrorInvalidValue for any other family
+// pairwise_ext_f64.cu): as launch_deriv_form below for `family` (order 0,
+// B2a contracted, too), or cudaErrorInvalidValue for any other family
 int launch_deriv_ext(const float* x1, const float* x2, const float* params, float* out,
                      int family, int order, int value, const DerivLaunch& g);
 int launch_deriv_ext(const double* x1, const double* x2, const double* params, double* out,
@@ -268,14 +276,143 @@ pairwise_deriv_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   }
 }
 
+// B2's grid: 32 C columns by kDerivRows rows a block, a chain a z index
+template <typename T>
+dim3 deriv_grid(int n, int m, int chains) {
+  constexpr int C = vec_elems<T>();
+  return dim3((m + 32 * C - 1) / (32 * C),
+              std::min((n + kDerivRows - 1) / kDerivRows, kMaxGridY), chains);
+}
+
 template <typename T, typename Eval>
 int launch_deriv_eval(const T* x1, const T* x2, const T* params, T* out,
                       const gp::DerivLaunch& g) {
+  pairwise_deriv_kernel<T, Eval><<<deriv_grid<T>(g.n, g.m, g.chains), kDerivThreads, 0,
+                                   g.stream>>>(x1, x2, params, out, g.n, g.m, g.stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- B2a contracted over the chains (order 0) ----------------------------
+//
+// g[c][p] = 1/2 sum_ij dK_p(x_i - x_j; theta_c) W_ij, W = alpha_c alpha_c^T -
+// K_c^-1: the kernel-parameter terms of the chains' gradient, 1/2 alpha^T
+// K_p alpha - 1/2 tr(K^-1 K_p), with dK/dtheta never stored
+// (models/gp.py::log_marginal_value_and_grad_chains).  It replaces no TPU
+// kernel on its own: it fuses B2a over the chains (the JAX package's vmap
+// of _pairwise_deriv, gaussian_processes_tpu/ops/pairwise.py:297) with the
+// two contractions its value+grad makes of that output
+// (gaussian_processes_tpu/models/gp.py:347-348), which on the card wrote
+// the Jacobian, copied it twice and read it with GEMVs.
+//
+// Bound: the read of K^-1, n^2 values a chain (1024 chains at n = 500 in
+// float32: 1.02 GB, 0.31 ms at 3.35 TB/s), and n^2 exponentials or sines a
+// chain.  dK_p and W are symmetric, so a block walks the upper triangle:
+// rows wholly below its columns are skipped and an element above the
+// diagonal counts twice, which halves both.  The grid and the element are
+// B2a's (FormEval<T, Form, 1>, chain = blockIdx.z); a thread reads its C
+// columns of a K^-1 row in one 16-byte load, alpha_i from shared memory
+// beside x_i and alpha_j from registers, and keeps P running sums.  Warp
+// shuffles, then shared memory, reduce them to one partial a block and
+// plane, (chains, P, blocks); a second pass adds a chain's partials in a
+// fixed order.  No float atomics: a call repeats bit for bit.
+template <typename T, typename Eval>
+__global__ void __launch_bounds__(kDerivThreads, 1)
+pairwise_jac_contract_kernel(const T* __restrict__ x, const T* __restrict__ params,
+                             const T* __restrict__ alpha, const T* __restrict__ inv_K,
+                             T* __restrict__ partial, int n, int stride) {
   constexpr int C = vec_elems<T>();
-  const dim3 grid((g.m + 32 * C - 1) / (32 * C),
-                  std::min((g.n + kDerivRows - 1) / kDerivRows, kMaxGridY), g.chains);
-  pairwise_deriv_kernel<T, Eval><<<grid, kDerivThreads, 0, g.stream>>>(
-      x1, x2, params, out, g.n, g.m, g.stride);
+  constexpr int P = Eval::kVals;
+  __shared__ T xr[kDerivRows], ar[kDerivRows];
+  __shared__ T red[kDerivWarps][P];
+  params += static_cast<size_t>(blockIdx.z) * stride;
+  alpha += static_cast<size_t>(blockIdx.z) * n;
+  inv_K += static_cast<size_t>(blockIdx.z) * n * n;
+  const Eval ev(params);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.x * (32 * C) + lane * C;
+  const int last_col = min(static_cast<int>(blockIdx.x + 1) * 32 * C, n) - 1;
+  T xc[C], ac[C];  // columns past n compute with column n - 1 and weigh 0
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    xc[c] = x[min(col0 + c, n - 1)];
+    ac[c] = alpha[min(col0 + c, n - 1)];
+  }
+  const int valid = n - col0;
+  const bool vec = n % C == 0;
+  T acc[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) acc[p] = T(0);
+  // rows past the block's last column lie below its part of the diagonal
+  for (int rb = blockIdx.y; rb * kDerivRows <= last_col; rb += gridDim.y) {
+    const int row_base = rb * kDerivRows;
+    __syncthreads();  // every thread is done with the previous rows
+    if (threadIdx.x < kDerivRows) {
+      const int r = min(row_base + threadIdx.x, n - 1);
+      xr[threadIdx.x] = x[r];
+      ar[threadIdx.x] = alpha[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kDerivRowsPerWarp; ++q) {
+      const int ii = q * kDerivWarps + warp;
+      const int row = row_base + ii;
+      if (row > last_col) break;  // the warp's rows from here on weigh 0
+      const T xi = xr[ii], ai = ar[ii];
+      T kinv[C];
+      ldg_run(inv_K + static_cast<size_t>(row) * n + col0, kinv, valid, vec);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int col = col0 + c;
+        // above the diagonal twice, on it once, below it and past n not at all
+        const T wt = col >= n ? T(0) : (col > row ? T(2) : (col == row ? T(1) : T(0)));
+        const T w = wt * (ai * ac[c] - kinv[c]);
+        T val[P];
+        ev.eval(xi - xc[c], val);
+#pragma unroll
+        for (int p = 0; p < P; ++p) acc[p] += val[p] * w;
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    T s = acc[p];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) red[warp][p] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < P) {
+    T s = red[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kDerivWarps; ++w) s += red[w][threadIdx.x];
+    const size_t blocks = static_cast<size_t>(gridDim.x) * gridDim.y;
+    partial[(static_cast<size_t>(blockIdx.z) * P + threadIdx.x) * blocks +
+            blockIdx.y * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// the second pass: out[i] = 1/2 the sum of row i's `blocks` partials, in order
+template <typename T>
+__global__ void pairwise_contract_finish_kernel(const T* __restrict__ partial,
+                                                T* __restrict__ out, int rows, int blocks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const T* p = partial + static_cast<size_t>(i) * blocks;
+  T s = p[0];
+  for (int b = 1; b < blocks; ++b) s += p[b];
+  out[i] = T(0.5) * s;
+}
+
+template <typename T, typename Eval>
+int launch_contract_eval(const T* x, const T* params, T* out, const gp::DerivLaunch& g) {
+  const dim3 grid = deriv_grid<T>(g.n, g.n, g.chains);
+  pairwise_jac_contract_kernel<T, Eval><<<grid, kDerivThreads, 0, g.stream>>>(
+      x, params, static_cast<const T*>(g.alpha), static_cast<const T*>(g.inv_K),
+      static_cast<T*>(g.partial), g.n, g.stride);
+  const int rows = g.chains * Eval::kVals;
+  pairwise_contract_finish_kernel<T><<<(rows + 255) / 256, 256, 0, g.stream>>>(
+      static_cast<const T*>(g.partial), out, rows, static_cast<int>(grid.x * grid.y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,11 +430,15 @@ int launch_hess_value(const T* x1, const T* x2, const T* params, T* out, int val
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// order 1: the Jacobian; order 2 and value < 0: every Hessian plane; order 2
-// and value >= 0: the plane of that upper-triangle value
+// order 0: the Jacobian contracted with g's operands (x1 = x2), out (chains,
+// P); order 1: the Jacobian; order 2 and value < 0: every Hessian plane;
+// order 2 and value >= 0: the plane of that upper-triangle value
 template <typename T, typename Form>
 int launch_deriv_form(const T* x1, const T* x2, const T* params, T* out, int order,
                       int value, const gp::DerivLaunch& g) {
+  if (order == 0) {
+    return launch_contract_eval<T, FormEval<T, Form, 1>>(x1, params, out, g);
+  }
   if (order == 1) {
     return launch_deriv_eval<T, FormEval<T, Form, 1>>(x1, x2, params, out, g);
   }

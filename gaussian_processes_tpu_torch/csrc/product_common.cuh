@@ -1,7 +1,8 @@
 // What the kernels share: the folded exponential (B4 and B5 in matvec.cuh,
 // B4-ARD in ard_matvec.cuh, B6 in ard_pairwise.cu), 16-byte loads of staged
 // tiles and the padded stride of staged coordinates (B4-ARD, B6), and
-// 16-byte stores of a thread's run of output columns (B2 in pairwise.cu, B6).
+// 16-byte stores of a thread's run of output columns (B2 in pairwise.cu, B6)
+// and loads of one (B2a contracted).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -81,6 +82,26 @@ __device__ __forceinline__ void stv(T* p, const T (&v)[C], int valid, bool vec) 
     for (int c = 0; c < C; ++c) {
       if (c < valid) p[c] = v[c];
     }
+  }
+}
+
+// the mirror of stv: C = vec_elems<T>() values from p[0, C) of device
+// memory, one 16-byte load when `vec` and all C lie inside the row, else one
+// load per value below `valid` and 0 past it
+template <typename T, int C>
+__device__ __forceinline__ void ldg_run(const T* p, T (&v)[C], int valid, bool vec) {
+  static_assert(C * sizeof(T) == 16, "a run of columns is one 16-byte vector");
+  if (vec && valid >= C) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      const double2 t = *reinterpret_cast<const double2*>(p);
+      v[0] = t.x; v[1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = c < valid ? p[c] : T(0);
   }
 }
 

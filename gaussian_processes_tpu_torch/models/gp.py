@@ -43,11 +43,14 @@ from gaussian_processes_tpu_torch.ops.blocked_cholesky import (
     choose_solve,
 )
 from gaussian_processes_tpu_torch.ops.pairwise import (
+    is_tree,
+    jacobian_contract_chains,
     pairwise_jacobian_chains,
     pairwise_matrix,
     pairwise_matrix_ard,
     pairwise_matrix_chains,
 )
+from gaussian_processes_tpu_torch.utils.profiling import counts
 
 _LOG_2PI = 1.8378770664093453
 
@@ -388,11 +391,15 @@ def log_marginal_value_and_grad_chains(kernel_template: Kernel, x, y, theta, jit
     (C, P + 1).  The chains share x and y.  On a card the C matrices K_c
     come from one launch of kernel B1 over the (C, P + 1) table [params,
     s^2 + jitter], their factors from the blocked factorization over B3 on
-    (C, 128, 128) stacks, and the C Jacobians from one launch of B2a; the
-    solves and contractions are batched library calls.  The noise component
-    uses dK/ds = 2 s I without building that plane:
-    d lml / ds = s (alpha^T alpha - tr K^-1).  A chain whose K is not
-    positive definite gets NaN in its own outputs only.
+    (C, 128, 128) stacks; the solves are batched library calls.  For a leaf
+    family the kernel-parameter terms 1/2 sum_ij dK_p (alpha alpha^T -
+    K^-1)_ij come from B2a contracted (``jacobian_contract_chains``), the
+    Jacobians never stored, and count C in ``core.grad_contracted``; a
+    tree's Jacobians come from its leaves' B2a launches and are contracted
+    by batched library calls.  The noise component uses dK/ds = 2 s I
+    without building that plane: d lml / ds = s (alpha^T alpha - tr K^-1).
+    A chain whose K is not positive definite gets NaN in its own outputs
+    only.
     """
     x = torch.as_tensor(x)
     y = _like(y, x)
@@ -414,11 +421,16 @@ def log_marginal_value_and_grad_chains(kernel_template: Kernel, x, y, theta, jit
     del L
     inv_K = inv_L.mT @ inv_L
     del inv_L
-    J = pairwise_jacobian_chains(kernel_template, x, params)                 # (C, P, n, n)
-    quad = torch.einsum("ci,cpij,cj->cp", alpha, J, alpha)
-    trace = torch.einsum("cij,cpji->cp", inv_K, J)
+    if is_tree(kernel_template):
+        J = pairwise_jacobian_chains(kernel_template, x, params)             # (C, P, n, n)
+        quad = torch.einsum("ci,cpij,cj->cp", alpha, J, alpha)
+        trace = torch.einsum("cij,cpji->cp", inv_K, J)
+        g_k = 0.5 * (quad - trace)
+    else:
+        counts["core.grad_contracted"] += C
+        g_k = jacobian_contract_chains(kernel_template, x, params, alpha, inv_K)
     g_s = s * (torch.sum(alpha * alpha, dim=-1) - torch.diagonal(inv_K, dim1=-2, dim2=-1).sum(-1))
-    return lml, torch.cat([0.5 * (quad - trace), g_s[:, None]], dim=1)
+    return lml, torch.cat([g_k, g_s[:, None]], dim=1)
 
 
 def log_marginal_hessian(kernel: Kernel, x, y, noise, jitter=0.0):

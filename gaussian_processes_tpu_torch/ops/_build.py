@@ -52,6 +52,8 @@ _SIGNATURES = {
     "gp_pairwise_deriv": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gp_pairwise_k_chains": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     "gp_pairwise_jac_chains": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gp_pairwise_jac_contract_chains": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gp_pairwise_jac_contract_blocks": (_I,),
     "gp_chol_tile": (_I, _P, _P, _I, _I, _P),
     "gp_chol_tile_inv": (_I, _P, _P, _P, _I, _I, _P),
     "gp_kernel_matvec": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),

@@ -23,6 +23,9 @@ tensors on a CUDA card it launches the hand-written kernel of
   counterpart of the JAX package's ``vmap`` of those Pallas calls over the
   samplers' chains.  A tree's Jacobian comes from its leaves' launches by
   the matrix-level rule of ``models/composite.py``.
+  ``jacobian_contract_chains`` is B2a over the table contracted with
+  alpha alpha^T - K^-1 in the same launch (a leaf's gradient terms, the
+  Jacobian never stored).
 * ``pairwise_hessian`` (B2b) replaces ``_hess_tile_body``: (P, P, n, m)
   filled symmetrically from the upper triangle, or one (n, m) plane when a
   ``pair`` is given, which evaluates that value's closed form alone
@@ -607,6 +610,64 @@ def pairwise_jacobian_chains_reference(kernel_template, x, params) -> torch.Tens
     d = pairwise_diff(x, x)[None]
     return torch.stack(type(kernel_template).jac_fn(
         d, *(p[:, None, None] for p in params.unbind(1))), dim=1)
+
+
+def jacobian_contract_chains(kernel_template, x, params, alpha, inv_K) -> torch.Tensor:
+    """(C, P): 1/2 sum_ij dK_c/dtheta_p[i, j] (alpha_ci alpha_cj - inv_K_cij)
+    for every chain c, the kernel-parameter terms of the chains' gradient.
+
+    ``params`` is the (C, P) table (rows may be a strided view), ``alpha``
+    (C, n) and ``inv_K`` (C, n, n), symmetric.  The CUDA path is kernel B2a
+    contracted, one launch and a second pass over its block partials, with
+    dK/dtheta never stored and K^-1's upper triangle read; a leaf family
+    only (TypeError for a tree)."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params)
+    _leaf_class(kernel_template)
+    C, P = params.shape
+    n = x.shape[0]
+    if alpha.shape != (C, n) or inv_K.shape != (C, n, n):
+        raise ValueError(f"alpha and inv_K must be ({C}, {n}) and ({C}, {n}, {n}), got "
+                         f"{tuple(alpha.shape)} and {tuple(inv_K.shape)}")
+    if x.device.type == "cpu":
+        return jacobian_contract_chains_reference(kernel_template, x, params, alpha, inv_K)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    alpha, inv_K = alpha.contiguous(), inv_K.contiguous()
+    _check_chains("jacobian_contract_chains", x, params)
+    _check_cuda("jacobian_contract_chains", x, alpha, inv_K)
+    out = torch.empty((C, P), dtype=x.dtype, device=x.device)
+    if n == 0 or C == 0:
+        return out.zero_()
+    partial = torch.empty((C, P, _contract_blocks(n, x.dtype)), dtype=x.dtype, device=x.device)
+    family = _family(kernel_template)
+    status = _build.entry("gp_pairwise_jac_contract_chains", x.dtype)(
+        x.device.index, x.data_ptr(), params.data_ptr(), alpha.data_ptr(), inv_K.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), n, C, params.stride(0), family,
+        _build.stream_of(x),
+    )
+    _build.check(status, "gp_pairwise_jac_contract_chains")
+    _build.launch_counts["pairwise_jac_contract_chains" + _COUNTER_SUFFIX[family]] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _contract_blocks(n: int, dtype) -> int:
+    """The blocks of B2a's grid over an (n, n) plane, the partials a chain
+    and plane of B2a contracted; cached per (n, dtype), so a value+grad
+    makes no host call to learn it."""
+    return _build.entry("gp_pairwise_jac_contract_blocks", dtype)(n)
+
+
+def jacobian_contract_chains_reference(kernel_template, x, params, alpha, inv_K) -> torch.Tensor:
+    """Plain PyTorch twin of ``jacobian_contract_chains``: the reference
+    dK/dtheta contracted in its own layout."""
+    x, _ = _vectors(x, x)
+    params = _chain_params(kernel_template, x, params)
+    _leaf_class(kernel_template)
+    J = pairwise_jacobian_chains_reference(kernel_template, x, params)
+    W = alpha[:, :, None] * alpha[:, None, :] - inv_K
+    return 0.5 * torch.einsum("cpij,cij->cp", J, W)
 
 
 def hessian_plane_folded(kernel, x1, x2, pair) -> torch.Tensor:

@@ -9,7 +9,10 @@ package's one place for tracing:
   events under dotted names: ``inference.host_syncs`` (each read of a device
   value to the host in the samplers), ``core.value_and_grad`` (each batched
   log-density evaluation) and ``core.rows`` (the positions it evaluates: C
-  for a (C, D) batch, 1 for a point), ``solve.diag_inverses`` (the diagonal
+  for a (C, D) batch, 1 for a point), ``core.grad_contracted`` (the rows
+  whose kernel-parameter gradient took B2a contracted, the Jacobian never
+  stored: C for each leaf-family ``log_marginal_value_and_grad_chains``),
+  ``solve.diag_inverses`` (the diagonal
   blocks a block-cyclic substitution inverts, m_loc a solve),
   ``parallel.collectives`` (each ``RankMesh`` collective, the identity of
   one rank too) and ``parallel.checkpoints`` (each chain-sharded state

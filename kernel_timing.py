@@ -144,7 +144,8 @@ def measure_chains(dev) -> dict:
     """The samplers' batched evaluation at C = 64, N = 500 (chip_smoke.py's
     chain workload): B1 and B2a over the chain table (SE and periodic), B3
     on the chains' (64, 128, 128) tile stack, the batched blocked factor,
-    and the batched value and gradient, device time and host wall.  Empty
+    and the batched value and gradient, device time and host wall; B2a
+    contracted where the tree has it (``measure_contract_chains``).  Empty
     for a tree without the chain tables."""
     import torch
     from gaussian_processes_tpu_torch.models import gp
@@ -177,6 +178,40 @@ def measure_chains(dev) -> dict:
     value_and_grad()
     out["value_and_grad_chains_wall_s"] = statistics.median(
         wall_s(value_and_grad) for _ in range(15))
+    if hasattr(pw, "jacobian_contract_chains"):
+        out.update(measure_contract_chains(dev))
+    return out
+
+
+def measure_contract_chains(dev) -> dict:
+    """B2a contracted at config #3's and config #5's SE batches, (64, 500^2)
+    and (1024, 500^2) float32, on the chains' own alpha and K^-1; beside it
+    its plain twin, and the path it replaces: B2a's Jacobians and the two
+    einsums over them."""
+    import torch
+    from gaussian_processes_tpu_torch.ops import pairwise as pw
+
+    out = {}
+    for chains in (64, 1024):
+        x, template, theta = cs.chain_problem(dev, torch.float32, "se", chains=chains)
+        params = theta[:, :2]
+        K = pw.pairwise_matrix_chains(template, x, params, theta[:, 2] ** 2 + 1e-6)
+        alpha, inv_K = cs.contract_operands(K, x)  # K^-1 row-major, as the value+grad's
+        del K
+
+        def jacobian_and_einsums():
+            J = pw.pairwise_jacobian_chains(template, x, params)
+            quad = torch.einsum("ci,cpij,cj->cp", alpha, J, alpha)
+            return 0.5 * (quad - torch.einsum("cij,cpji->cp", inv_K, J))
+
+        tag = f"se_{chains}"
+        out[f"B2a_contract_chains_{tag}_ms"] = cs.time_ms(
+            lambda: pw.jacobian_contract_chains(template, x, params, alpha, inv_K), 20)
+        out[f"B2a_contract_chains_{tag}_plain_ms"] = cs.time_ms(
+            lambda: pw.jacobian_contract_chains_reference(template, x, params, alpha, inv_K), 5)
+        out[f"B2a_chains_and_einsums_{tag}_ms"] = cs.time_ms(jacobian_and_einsums, 5)
+        del alpha, inv_K
+        torch.cuda.empty_cache()
     return out
 
 

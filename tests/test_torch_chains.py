@@ -1,14 +1,16 @@
 """Chain-batched value and gradient (kernels B1, B2a over a parameter table,
-the batched blocked Cholesky over B3) against the JAX package, chain by
-chain.
+B2a contracted, the batched blocked Cholesky over B3) against the JAX
+package, chain by chain.
 
 The JAX package gets C chains by ``vmap`` over its Pallas calls; the port
 takes a (C, P) table.  Here the port's plain versions (the CPU path of each
 wrapper) are held against the JAX builders run chain by chain in interpret
 mode, on the same numpy-seeded inputs in float64: the K and dK/dtheta tables
 to 1e-12 absolute (entries are at most h^2 ~ 2), the value and gradient to
-1e-10 relative.  The kernels themselves run on the card (chip_smoke.py,
-tests/test_torch_gpu.py).
+1e-10 relative.  B2a contracted's twin is held to the two contractions it
+replaces, 1/2 (alpha^T K_p alpha - tr(K^-1 K_p)), for every leaf family,
+and the value+grad takes it for a leaf and never for a tree.  The kernels
+themselves run on the card (chip_smoke.py, tests/test_torch_gpu.py).
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from gaussian_processes_tpu_torch.models import gp as tgp
 from gaussian_processes_tpu_torch.ops import _build
 from gaussian_processes_tpu_torch.ops import blocked_cholesky as bc
 from gaussian_processes_tpu_torch.ops import pairwise as tpw
+from gaussian_processes_tpu_torch.utils.profiling import counts
 from torch_threads import one_thread  # noqa: F401  (an autouse fixture)
 
 FAMILIES = {"se": (gpt.GaussianKernel, gpx.GaussianKernel, 2),
@@ -130,3 +133,83 @@ def test_value_and_grad_chains_keeps_a_bad_chain_to_itself():
     one, _ = tgp.log_marginal_value_and_grad_chains(template, _t(x), _t(y), _t(theta[2:3]),
                                                      JITTER)
     np.testing.assert_allclose(float(one[0]), float(lml[2]), rtol=1e-13)
+
+
+# every leaf family of the port, for B2a contracted
+LEAVES = {"se": lambda: gpx.GaussianKernel(1.0, 1.0, dtype=torch.float64),
+          "periodic": lambda: gpx.PeriodicKernel(1.0, 1.0, 2.0, dtype=torch.float64),
+          "matern32": lambda: gpx.Matern32Kernel(1.0, 1.0, dtype=torch.float64),
+          "matern52": lambda: gpx.Matern52Kernel(1.0, 1.0, dtype=torch.float64),
+          "rq": lambda: gpx.RationalQuadraticKernel(1.0, 1.0, 1.5, dtype=torch.float64)}
+
+
+def _grad_pieces(template, seed):
+    """x, y, the (C, P + 1) table, alpha and K^-1 of a small chain problem."""
+    P = template.n_params
+    rng = np.random.default_rng(seed)
+    x = _t(np.sort(rng.uniform(-3, 3, N)))
+    y = torch.sin(2 * x) + 0.1 * _t(rng.standard_normal(N))
+    theta = _t(rng.uniform(0.5, 1.6, (C, P + 1)))
+    theta[:, P] *= 0.3
+    K = tpw.pairwise_matrix_chains_reference(template, x, theta[:, :P], theta[:, P] ** 2 + JITTER)
+    L = torch.linalg.cholesky(K)
+    alpha = torch.cholesky_solve(y[None, :, None].expand(C, N, 1), L)[..., 0]
+    inv_K = torch.cholesky_inverse(L)
+    return x, y, theta, alpha, inv_K
+
+
+@pytest.mark.parametrize("family", list(LEAVES))
+def test_contract_twin_equals_quad_minus_trace(family):
+    template = LEAVES[family]()
+    x, _, theta, alpha, inv_K = _grad_pieces(template, seed=5)
+    params = theta[:, :template.n_params]
+    J = tpw.pairwise_jacobian_chains_reference(template, x, params)
+    quad = torch.einsum("ci,cpij,cj->cp", alpha, J, alpha)
+    trace = torch.einsum("cij,cpji->cp", inv_K, J)
+    want = 0.5 * (quad - trace)
+    got = tpw.jacobian_contract_chains_reference(template, x, params, alpha, inv_K)
+    assert got.shape == (C, template.n_params)
+    scale = 0.5 * (torch.einsum("ci,cpij,cj->cp", alpha.abs(), J.abs(), alpha.abs())
+                   + torch.einsum("cij,cpji->cp", inv_K.abs(), J.abs()))
+    assert float(((got - want).abs() / scale).max()) < 1e-12
+    before = dict(_build.launch_counts)
+    assert torch.equal(tpw.jacobian_contract_chains(template, x, params, alpha, inv_K), got)
+    assert dict(_build.launch_counts) == before  # CPU tensors never launch
+
+
+def test_contract_wrapper_checks_its_inputs():
+    template = LEAVES["se"]()
+    x, _, theta, alpha, inv_K = _grad_pieces(template, seed=6)
+    with pytest.raises(ValueError, match="alpha and inv_K"):
+        tpw.jacobian_contract_chains(template, x, theta[:, :2], alpha[:2], inv_K)
+    tree = gpx.ProductKernel(LEAVES["se"](), LEAVES["periodic"]())
+    with pytest.raises(TypeError, match="tree"):
+        tpw.jacobian_contract_chains(tree, x, _t(np.ones((C, 5))), alpha, inv_K)
+
+
+@pytest.mark.parametrize("kind", ["se", "rq", "tree"])
+def test_value_and_grad_chains_contracts_every_leaf_and_no_tree(kind, monkeypatch):
+    """A leaf family never builds its Jacobians and counts its C rows in
+    ``core.grad_contracted``; a tree takes its leaves' Jacobians and counts
+    nothing."""
+    template = (gpx.ProductKernel(LEAVES["se"](), LEAVES["periodic"]()) if kind == "tree"
+                else LEAVES[kind]())
+    x, y, theta, _, _ = _grad_pieces(template, seed=7)
+    calls = []
+    real = tgp.pairwise_jacobian_chains
+
+    def spy(*args, **kw):
+        calls.append(args[0])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tgp, "pairwise_jacobian_chains", spy)
+    monkeypatch.setattr(tpw, "pairwise_jacobian_chains", spy)
+    before = counts["core.grad_contracted"]
+    lml, grad = tgp.log_marginal_value_and_grad_chains(template, x, y, theta, JITTER)
+    assert lml.shape == (C,) and grad.shape == (C, template.n_params + 1)
+    assert bool(torch.isfinite(grad).all())
+    contracted = counts["core.grad_contracted"] - before
+    if kind == "tree":
+        assert contracted == 0 and calls
+    else:
+        assert contracted == C and not calls

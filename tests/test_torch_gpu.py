@@ -1,6 +1,7 @@
 """Kernels B1-B6 on the card against their plain PyTorch versions: every
 leaf family (SE, periodic, Matérn 3/2 and 5/2, RQ) and, for B1 and B4,
-Sum/Product trees.
+Sum/Product trees; B2a contracted against its float64 twin within a share of
+the sum's size before cancellation (1e-5 float32, 1e-12 float64).
 
 Marked ``gpu``: each test skips without a CUDA device.  This file imports no
 JAX, so it also runs where JAX is absent:
@@ -686,6 +687,83 @@ def test_tree_value_and_grad_chains_on_card(cuda, dtype):
     torch.testing.assert_close(lml.cpu().double(), cpu[0], rtol=rel, atol=0)
     torch.testing.assert_close(grad.cpu().double(), cpu[1], rtol=0,
                                atol=(2e-2 if dtype == torch.float32 else 1e-8) * cpu[1].abs().max())
+
+
+# -- B2a contracted over the chains: the samplers' gradient terms ------------
+
+
+def _contract_problem(kind, dtype, dev, chains, n):
+    """A leaf, the (chains, P) table (a strided view), alpha and a symmetric
+    K^-1 of O(1) entries."""
+    k = ALL_KERNELS[kind](dtype, dev)
+    P = k.n_params
+    x = _x(n, 80, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(chains + n)
+    theta = 0.5 + torch.rand(chains, P + 1, generator=g, dtype=dtype, device=dev)
+    alpha = torch.randn(chains, n, generator=g, dtype=dtype, device=dev)
+    R = torch.randn(chains, n, n, generator=g, dtype=dtype, device=dev)
+    return k, x, theta[:, :P], alpha, 0.5 * (R + R.mT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", list(ALL_KERNELS))
+@pytest.mark.parametrize("chains,n", [(64, 500), (1024, 500), (37, 129)])
+def test_jac_contract_chains_match_twin(cuda, kind, dtype, chains, n):
+    """Held, per chain and plane, to the float64 twin within a share of
+    1/2 sum_ij |dK_p| (|alpha_i alpha_j| + |K^-1_ij|), the size of the sum
+    before cancellation."""
+    k, x, params, alpha, inv_K = _contract_problem(kind, dtype, cuda, chains, n)
+    before = dict(_build.launch_counts)
+    got = tpw.jacobian_contract_chains(k, x, params, alpha, inv_K)
+    torch.cuda.synchronize()
+    key = "pairwise_jac_contract_chains" + ("" if kind in KERNELS else "_" + kind)
+    assert _build.launch_counts[key] == before.get(key, 0) + 1
+    assert all(_build.launch_counts[c] == before.get(c, 0)
+               for c in _build.launch_counts if c.startswith("pairwise_jac_chains"))
+    k64 = ALL_KERNELS[kind](torch.float64, cuda)
+    x64, p64, a64, w64 = (t.double() for t in (x, params, alpha, inv_K))
+    want = tpw.jacobian_contract_chains_reference(k64, x64, p64, a64, w64)
+    J = tpw.pairwise_jacobian_chains_reference(k64, x64, p64).abs()
+    scale = 0.5 * torch.einsum("cpij,cij->cp", J, (a64[:, :, None] * a64[:, None, :]).abs()
+                               + w64.abs())
+    del J
+    share = float(((got.double() - want).abs() / scale).max())
+    assert share < (1e-5 if dtype == torch.float32 else 1e-12), share
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["se", "rq"])
+def test_jac_contract_chains_repeats_bit_identical(cuda, kind, dtype):
+    k, x, params, alpha, inv_K = _contract_problem(kind, dtype, cuda, 1024, 500)
+    first = tpw.jacobian_contract_chains(k, x, params, alpha, inv_K)
+    assert torch.equal(tpw.jacobian_contract_chains(k, x, params, alpha, inv_K), first)
+
+
+def test_value_and_grad_chains_1024_peak_memory(cuda):
+    """Config #5's batch, 1024 SE chains at n = 500 in float32: the
+    Jacobian is never stored, so the factorization sets the peak, under
+    4.5 MB a chain."""
+    from gaussian_processes_tpu_torch.models import gp
+
+    C, n = 1024, 500
+    k = KERNELS["se"](torch.float32, cuda)
+    x = _x(n, 81, torch.float32, cuda)
+    y = torch.sin(2 * x)
+    g = torch.Generator().manual_seed(82)
+    theta = (0.5 + torch.rand(C, 3, generator=g, dtype=torch.float64)).to(cuda, torch.float32)
+    gp.log_marginal_value_and_grad_chains(k, x, y, theta, 1e-6)  # the build, cuBLAS's workspace
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = dict(_build.launch_counts)
+    lml, grad = gp.log_marginal_value_and_grad_chains(k, x, y, theta, 1e-6)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda) - base
+    assert rise < 4.5e6 * C, rise
+    assert _build.launch_counts["pairwise_jac_contract_chains"] == \
+        before.get("pairwise_jac_contract_chains", 0) + 1
+    assert _build.launch_counts["pairwise_jac_chains"] == before.get("pairwise_jac_chains", 0)
+    assert bool(torch.isfinite(lml).all()) and bool(torch.isfinite(grad).all())
 
 
 # -- the folded element of B1 and B4 (redesigned together) ---------------------
